@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+
+1. env      torch / CUDA versions, the card's name and power limit.
+2. build    compile every CUDA kernel (one nvcc per source, in parallel).
+3. kernels  each kernel against its plain PyTorch version at the serving
+            path's shapes: ``encode_fused`` bit-equal, ``decode_attend``
+            within ATOL. Times per call of the kernel, the plain version
+            and the library yardstick: ``*ms`` from CUDA events around
+            back-to-back calls (host work between launches included),
+            ``*device_ms`` the kernels' own time from torch.profiler;
+            beside the least time the card could take (bytes over
+            3.35 TB/s or float32 operations over 67 TFLOP/s, the larger;
+            for ``decode_attend`` only the positions the mask admits).
+4. serve    the main path: ``repro_torch.launch.serve`` on full-width
+            lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
+            batch 8, context 512, prefill chunk 64, 8 requests of 128
+            prompt tokens and 32 new tokens after a warm-up request. Both
+            kernels' launch counters are zeroed just before and must read
+            forward calls x layers just after.
+5. check    the smoke-size engine on the card against the same engine on
+            the CPU (the plain versions, which the CPU tests hold against
+            the JAX reference): logits within ATOL_LOGITS.
+6. profile  device time by kernel and by category over four decode steps
+            (torch.profiler), beside the same steps' wall time without
+            the profiler; busy share = device time / unprofiled wall.
+
+Then the kernels JSON line, the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository's ``src/`` beside it, the script exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+ATOL_ATTEND = 1e-5             # online softmax reorders the f32 sums
+ATOL_LOGITS = 0.25             # bf16 matmuls + 4-bit rounding flips
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` back-to-back
+    calls, after a warm-up; the median of ``rounds`` such runs. Host work
+    between launches (the wrapper's checks) counts, as it does on the
+    serving path."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / reps)
+    return statistics.median(per_call)
+
+
+def _kernel_events(prof):
+    """(self device us, name, count) of the device-side (kernel) events
+    of a profile; host-side ops are left out so nothing counts twice."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            rows.append((float(us), e.key, e.count))
+    return sorted(rows, reverse=True)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Milliseconds of device (kernel) time per call, from torch.profiler:
+    the sum of the device times of every kernel ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _kernel_events(prof)) / calls / 1e3
+
+
+def _category(kernel_name: str) -> str:
+    n = kernel_name.lower()
+    if "decode_attend" in n:
+        return "decode_attend"
+    if "encode_fused" in n:
+        return "encode_fused"
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if any(k in n for k in ("sort", "radix", "scan")):
+        return "sort_cumsum"
+    if "<long" in n:
+        return "int64_elementwise"
+    return "other"
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(bytes_moved: int, f32_ops: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_encode(torch, dev):
+    from repro_torch.core import levels
+    from repro_torch.kernels import fused_encode as fe
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    # KV rows are all valid, so the serving path's cases pass no mask
+    cases = {  # name -> (rows, d, s, bits, mode, masked, clip_c)
+        "decode_rows16": (16, 768, 9, 4, "rr", "none", None),
+        "prefill_rows128": (128, 768, 9, 4, "rr", "none", None),
+        "bin": (16, 768, 2, 1, "bin", "none", None),
+        "sign": (16, 768, 2, 1, "sign", "random", None),
+        "ragged_d100_bits3": (16, 100, 5, 3, "rr", "random", None),
+        "clip_c2.5": (16, 768, 9, 4, "rr", "none", 2.5),
+    }
+    results = {}
+    for name, (nb, d, s, bits, mode, masked, clip_c) in cases.items():
+        v = torch.randn((nb, d), generator=g) * 0.3
+        mask = {"none": None,
+                "random": torch.rand((nb, d), generator=g) > 0.1}[masked]
+        fit_mask = mask if mask is not None else torch.ones_like(v,
+                                                                 dtype=bool)
+        if mode == "rr":
+            K = (s - 1).bit_length() - 1
+            lv = levels.orq_levels(v, fit_mask, K)
+        else:
+            lv = torch.sort(torch.randn((nb, s), generator=g) * 0.3).values
+        rb = (torch.randint(-2 ** 31, 2 ** 31, (nb, d), generator=g,
+                            dtype=torch.int64).to(torch.int32)
+              if mode == "rr" else None)
+        lim = fe.clip_limit(v, mask, clip_c)
+        cpu = (v, lv, rb, mask, lim)
+        want = fe.encode_fused_plain(*cpu, bits=bits, mode=mode)
+        gpu = [None if t is None else t.to(dev) for t in cpu]
+        got = fe.encode_fused_cuda(*gpu, bits=bits, mode=mode)
+        torch.cuda.synchronize()
+        mism = int((got.cpu() != want).sum())
+        plain_gpu = fe.encode_fused_plain(*gpu, bits=bits, mode=mode)
+        kern = lambda: fe.encode_fused_cuda(*gpu, bits=bits, mode=mode)
+        plain = lambda: fe.encode_fused_plain(*gpu, bits=bits, mode=mode)
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain)
+        moved = nbytes(*gpu, got)
+        b_ms, b_by = bound(moved, nb * d * (2 * s + 8))
+        results[name] = dict(
+            shape=[nb, d], s=s, bits=bits, mode=mode, mask=masked,
+            clip_c=clip_c, words_mismatched=mism,
+            plain_on_card_mismatched=int((plain_gpu != got).sum()),
+            max_abs_err=float(mism), ms=ms, plain_ms=plain_ms,
+            library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="encode_fused", case=name, **results[name])
+        if mism:
+            raise AssertionError(f"encode_fused {name}: {mism} words differ "
+                                 f"from the plain version")
+    return results
+
+
+def _library_attend(torch, q, kw, klv, vw, vlv, mask, bits, kv_heads, scale):
+    """Yardstick only: the plain dequant, then PyTorch's SDPA."""
+    from repro_torch.kernels.ref import _kv_decode
+    B, T, H, hd = q.shape
+    d = kv_heads * hd
+    C = kw.shape[1]
+    k = _kv_decode(kw, klv, bits, klv.shape[-1], d).reshape(B, C, kv_heads,
+                                                            hd)
+    v = _kv_decode(vw, vlv, bits, vlv.shape[-1], d).reshape(B, C, kv_heads,
+                                                            hd)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None], scale=scale, enable_gqa=H != kv_heads)
+
+
+def attend_work(torch, q, kw, klv, mask, out):
+    """(bytes, float32 operations) that ``decode_attend`` needs on this
+    run's mask. A masked score is -2e38, so its weight exp(-2e38 - m) is
+    exactly 0 and an admitted row needs only K and V up to its sequence's
+    last admitted position, 4·hd operations per (head, admitted position).
+    A fully masked row averages V over all C positions (2·hd operations per
+    head and position) and reads no K. q, mask and out count whole."""
+    B, T, H, hd = q.shape
+    C = kw.shape[1]
+    n = mask.sum(dim=-1)                                     # (B, T)
+    pos = torch.arange(1, C + 1, device=mask.device)
+    k_rows = torch.where(mask, pos, 0).amax(dim=(1, 2))      # (B,)
+    v_rows = torch.where((n == 0).any(dim=1), C, k_rows)
+    row_bytes = nbytes(kw[0, 0], klv[0, 0])                  # one of K or V
+    moved = (nbytes(q, mask, out)
+             + int((k_rows + v_rows).sum()) * row_bytes)
+    ops = H * hd * (4.0 * float(n.sum()) + 2.0 * C * float((n == 0).sum()))
+    return moved, ops
+
+
+def check_attend(torch, dev):
+    from repro_torch.core.api import make_quantizer
+    from repro_torch.kernels import fused_kv as fk
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cases = {  # name -> (B, T, H, KV, hd, C, softcap, first query pos)
+        "decode_b8": (8, 1, 12, 12, 64, 512, 0.0, None),
+        "prefill_t64": (1, 64, 12, 12, 64, 512, 0.0, [64]),
+        "gqa_h8_kv2": (4, 1, 8, 2, 64, 256, 0.0, None),
+        "softcap50": (2, 4, 12, 12, 64, 512, 50.0, None),
+        "fully_masked_row": (3, 1, 12, 12, 64, 512, 0.0, [-1, 100, 511]),
+    }
+    results = {}
+    for name, (B, T, H, KV, hd, C, cap, first) in cases.items():
+        d = KV * hd
+        qz = make_quantizer("orq-9", bucket_size=d)
+        rows = (torch.randn((2, B * C, d), generator=g) * 0.5).to(dev)
+        rb = torch.randint(-2 ** 31, 2 ** 31, (2 * B * C, d), generator=g,
+                           dtype=torch.int64).to(torch.int32).to(dev)
+        kw_, klv, vw_, vlv = fk.append_kv(qz, rows[0], rows[1], rb)
+        kw_, klv, vw_, vlv = (t.reshape(B, C, -1).contiguous()
+                              for t in (kw_, klv, vw_, vlv))
+        q = torch.randn((B, T, H, hd), generator=g).to(dev)
+        if first is None:   # decode: each sequence at its own position
+            first = torch.randint(0, C - T + 1, (B,), generator=g).tolist()
+        qpos = torch.tensor(first)[:, None] + torch.arange(T)[None]
+        mask = (torch.arange(C)[None, None, :] <= qpos[:, :, None]).to(dev)
+        kwargs = dict(bits=qz.wire_bits_per_element, kv_heads=KV,
+                      scale=hd ** -0.5, softcap=cap)
+        args = (q, kw_, klv, vw_, vlv, mask)
+        want = fk.decode_attend_plain(*args, **kwargs)
+        got = fk.decode_attend_cuda(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        kern = lambda: fk.decode_attend_cuda(*args, **kwargs)
+        plain = lambda: fk.decode_attend_plain(*args, **kwargs)
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain)
+        lib_ms = lib_dev_ms = None
+        if not cap and name != "fully_masked_row":
+            lib = lambda: _library_attend(torch, *args, kwargs["bits"], KV,
+                                          hd ** -0.5)
+            lib_ms, lib_dev_ms = time_ms(lib), device_ms(lib)
+        moved, ops = attend_work(torch, q, kw_, klv, mask, got)
+        b_ms, b_by = bound(moved, ops)
+        results[name] = dict(
+            B=B, T=T, H=H, KV=KV, hd=hd, C=C, softcap=cap,
+            admitted_share=float(mask.float().mean()),
+            max_abs_err=err, finite=bool(torch.isfinite(got).all()),
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+            plain_device_ms=plain_dev_ms, library_device_ms=lib_dev_ms,
+            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="decode_attend", case=name, atol=ATOL_ATTEND,
+             **results[name])
+        if not err <= ATOL_ATTEND or not results[name]["finite"]:
+            raise AssertionError(f"decode_attend {name}: max abs err {err} "
+                                 f"> {ATOL_ATTEND}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6
+# ---------------------------------------------------------------------------
+
+MAIN_ARGS = ["--arch", "lm-100m", "--kv-quant", "orq-9", "--batch", "8",
+             "--prompt-len", "128", "--gen", "32", "--max-len", "512",
+             "--prefill-chunk", "64", "--page-size", "16", "--seed", "0"]
+
+
+def run_main_path(torch):
+    import numpy as np
+
+    from repro_torch.kernels import fused_encode, fused_kv
+    from repro_torch.launch import serve as launcher
+
+    counters = {"encode_fused": fused_encode.encode_fused_cuda,
+                "decode_attend": fused_kv.decode_attend_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = launcher.serve(MAIN_ARGS)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    toks = r.pop("tokens")
+    eng = r.pop("engine")
+    expect = r["forward_calls"] * r["layers"]
+    cache_expect = (r["layers"] * eng.cfg.resolved_num_pages
+                    * eng.cfg.page_size * r["token_bytes"])
+    emit("serve", args=" ".join(MAIN_ARGS), wall_s=wall, launches=launches,
+         expected_launches=expect, cache_bytes_expected=cache_expect,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         tokens_shape=list(toks.shape), **r)
+    for k, n in launches.items():
+        if n != expect:
+            raise AssertionError(f"{k} launched {n} times, expected "
+                                 f"{expect} (forward calls x layers)")
+    if r["token_bytes"] != 840 or round(r["token_bytes_ratio"], 4) != 0.2734:
+        raise AssertionError(f"orq-9 cache accounting off: {r}")
+    if r["cache_bytes"] != cache_expect:
+        raise AssertionError("cache bytes disagree with the page count")
+    if toks.shape != (8, 32) or not ((toks >= 0) & (toks < 32768)).all():
+        raise AssertionError(f"bad tokens {toks.shape}")
+    if not np.isfinite(r["decode_tok_s"]):
+        raise AssertionError("no decode throughput")
+    return launches, eng
+
+
+def check_against_cpu(torch, dev):
+    """Smoke lm-100m: one prefill and two decode forwards on the card and
+    on the CPU from the same weights, pools and seeds."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.serve import Engine, ServeConfig
+
+    model = LM(get_smoke_config("lm-100m"))
+    params = map_tree(lambda t: t.to(torch.bfloat16),
+                      model.init(torch.Generator().manual_seed(0),
+                                 device="cpu"))
+    cfg = ServeConfig(kv_quant="orq-9", page_size=16, max_batch=2,
+                      max_pages_per_seq=4, prefill_chunk=32)
+    engines = {d: Engine(model, params, cfg, device=d) for d in (dev, "cpu")}
+    prompt = torch.randint(0, 512, (1, 32),
+                           generator=torch.Generator().manual_seed(3))
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
+    seeds = torch.tensor([11, 12])
+    errs = []
+    for step in range(3):
+        if step == 0:
+            args = (table[:1], torch.tensor([0]), seeds[:1], prompt)
+        else:
+            args = (table, torch.tensor([31 + step, 0]), seeds,
+                    torch.tensor([[7 * step], [9]]))
+        out = {}
+        for d, eng in engines.items():
+            if d != "cpu":   # same pools before every call
+                for gc, gg in zip(engines["cpu"].pools, eng.pools):
+                    for pos in gc:
+                        for k in gc[pos]:
+                            gg[pos][k].copy_(gc[pos][k])
+            lg, _, _ = eng._forward(eng.params, eng.pools,
+                                    *[a.to(eng.device) for a in args])
+            out[d] = lg.float().cpu()
+        errs.append(float((out[dev] - out["cpu"]).abs().max()))
+    emit("check", what="smoke engine forward, card vs CPU plain versions",
+         max_abs_logit_err=errs, atol=ATOL_LOGITS)
+    if not max(errs) <= ATOL_LOGITS:
+        raise AssertionError(f"card and CPU logits differ by {max(errs)}")
+
+
+def profile_decode(torch, eng):
+    """Device time by op over four decode steps of the main-path engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for b in range(eng.cfg.max_batch):
+        eng.submit([b + 1] * 16, max_new=10)
+    while eng.sched.next_prefill() is not None or not eng.sched.decode_ready():
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _kernel_events(prof)
+    total = sum(r[0] for r in rows)
+    by_cat = {}
+    for us, name, count in rows:
+        c = by_cat.setdefault(_category(name), {"device_us": 0.0,
+                                                "launches": 0})
+        c["device_us"] += us
+        c["launches"] += count
+    emit("profile", window="4 decode steps, batch 8",
+         wall_ms_unprofiled=plain_wall * 1e3, wall_ms_profiled=wall * 1e3,
+         device_us=total, kernel_launches=sum(r[2] for r in rows),
+         device_busy_share=total / 1e3 / (plain_wall * 1e3),
+         by_category=by_cat,
+         top=[{"name": k[:90], "count": c, "device_us": us}
+              for us, k, c in rows[:12]])
+    eng.run()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no repro_torch package under {SRC}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi)
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    report = build.build_all()
+    emit("build", seconds=time.perf_counter() - t0,
+         per_kernel={k: {"seconds": v["seconds"], "cached": v["cached"],
+                         "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
+                                   if "registers" in ln or "spill" in ln]}
+                     for k, v in report.items()})
+
+    enc = check_encode(torch, dev)
+    att = check_attend(torch, dev)
+    launches, eng = run_main_path(torch)
+    check_against_cpu(torch, dev)
+    profile_decode(torch, eng)
+
+    e, a = enc["decode_rows16"], att["decode_b8"]
+    kernels = [
+        {"name": "encode_fused", "route": "cuda",
+         "source": "src/repro_torch/csrc/encode_fused.cu",
+         "replaces": "src/repro/kernels/fused_encode.py:255",
+         "launches": launches["encode_fused"],
+         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+         "bound_by": e["bound_by"], "library_ms": None},
+        {"name": "decode_attend", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attend.cu",
+         "replaces": "src/repro/kernels/fused_kv.py:70",
+         "launches": launches["decode_attend"],
+         "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+         "bound_by": a["bound_by"], "library_ms": a["library_ms"]},
+    ]
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Carry a reference params tree across to the port.
+
+The port keeps the reference's params layout (dicts, the tuple of groups,
+the stacked ``(repeats, ...)`` axis), so conversion is a tree map over
+numpy leaves. bfloat16 leaves (numpy arrays of the ``ml_dtypes`` type the
+reference hands out) are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_jax(tree, device=None):
+    """Tree of numpy arrays in the reference's layout (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``) -> the same tree of
+    tensors on ``device`` (the card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return _leaf(node, dev)
+
+    return walk(tree)

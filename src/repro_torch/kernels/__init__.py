@@ -1,0 +1,9 @@
+# Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+#
+#   ops.py            device dispatch (CPU -> plain version, CUDA -> kernel)
+#   ref.py            plain oracles (the reference's kernels/ref.py twins)
+#   fused_encode.py   encode_fused: clip -> round -> mask -> pack
+#   fused_kv.py       decode_attend (fused dequant-attention), append_kv
+#   build.py          nvcc build into build/repro_torch/ + ctypes binding
+#
+# Sources live in ../csrc/.

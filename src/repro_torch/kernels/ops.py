@@ -1,0 +1,39 @@
+"""Device dispatch for the kernels: a CPU tensor takes the kernel's plain
+PyTorch version, a CUDA tensor launches the CUDA kernel (which raises on
+what it cannot take). There is no environment switch and no fallback."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import fused_encode as _fenc
+from repro_torch.kernels import fused_kv as _fkv
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def encode_fused(v, levels, rbits, mask, *, bits: int,
+                 clip_c: Optional[float] = None, mode: str = "rr"):
+    """σ-clip + round + mask + bit-pack: (nb, d) values -> (nb, nw) int32
+    wire words. ``rbits`` is the threefry stream for mode 'rr' (None for
+    the deterministic modes); ``mask=None`` marks every slot valid."""
+    lim = _fenc.clip_limit(v, mask, clip_c)
+    fn = _fenc.encode_fused_cuda if _on_cuda(v) else _fenc.encode_fused_plain
+    return fn(v, levels, rbits, mask, lim, bits=bits, mode=mode)
+
+
+def decode_attend(q, kw, klv, vw, vlv, mask, *, bits: int, kv_heads: int,
+                  scale: float, softcap: float = 0.0):
+    """Fused dequant-attention: q (B, T, H, hd) + packed kw/vw (B, C, nw) +
+    klv/vlv (B, C, s) + mask (B, T, C) -> (B, T, H, hd) f32."""
+    fn = (_fkv.decode_attend_cuda if _on_cuda(q)
+          else _fkv.decode_attend_plain)
+    return fn(q, kw, klv, vw, vlv, mask, bits=bits, kv_heads=kv_heads,
+              scale=scale, softcap=softcap)

@@ -1,0 +1,119 @@
+"""Plain PyTorch oracles: the slice's part of the reference's
+``kernels/ref.py``.
+
+``encode_fused_ref`` is the multi-pass composition (σ-clip, count-and-gather
+random round, mask, pack as separate sweeps) that the one-pass kernel is
+held bit-identical against. ``kv_attend_block`` is THE definition of the
+serving engine's dequant-attention math; ``fused_kv.decode_attend_plain``
+is this function, and the CUDA kernel is held float-close to it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import clipping, encode
+from repro_torch.core.rounding import uniform_from_bits
+
+NEG_INF = -2.0e38
+
+
+def quant_rr_ref(v: torch.Tensor, levels: torch.Tensor,
+                 bits: torch.Tensor) -> torch.Tensor:
+    """Interval search + random round -> (nb, d) int64 level indices."""
+    s = levels.shape[-1]
+    v = v.to(torch.float32)
+    lv = levels.to(torch.float32)
+    k = (v[..., None] >= lv[:, None, :]).sum(-1) - 1
+    k = torch.clamp(k, 0, s - 2)
+    lo = torch.gather(lv, 1, k)
+    hi = torch.gather(lv, 1, k + 1)
+    vc = torch.minimum(torch.maximum(v, lo), hi)
+    width = hi - lo
+    p_up = torch.where(width > 0,
+                       (vc - lo) / torch.where(width > 0, width, 1.0), 0.0)
+    return k + (uniform_from_bits(bits) < p_up).to(torch.int64)
+
+
+def _round_ref(v: torch.Tensor, levels: torch.Tensor,
+               rbits: Optional[torch.Tensor], mask: torch.Tensor,
+               clip_c: Optional[float], mode: str) -> torch.Tensor:
+    """Shared clip+round stage: masked int64 level indices."""
+    v = v.to(torch.float32)
+    if clip_c is not None:
+        v = clipping.sigma_clip(v, mask, clip_c)
+    if mode == "rr":
+        idx = quant_rr_ref(v, levels, rbits)
+    elif mode == "bin":
+        b0 = 0.5 * (levels[:, :1] + levels[:, 1:2])   # Eq. (17): midpoint
+        idx = (v >= b0).to(torch.int64)
+    elif mode == "sign":
+        idx = (v >= 0.0).to(torch.int64)
+    else:
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    return torch.where(mask, idx, 0)
+
+
+def encode_fused_ref(v: torch.Tensor, levels: torch.Tensor,
+                     rbits: Optional[torch.Tensor], mask: torch.Tensor, *,
+                     bits: int, clip_c: Optional[float] = None,
+                     mode: str = "rr") -> torch.Tensor:
+    """Oracle for ``fused_encode.encode_fused``: (nb, nw) int32 words."""
+    return encode.pack(_round_ref(v, levels, rbits, mask, clip_c, mode), bits)
+
+
+# ---------------------------------------------------------------------------
+# quantized-KV serving oracles (kernels/fused_kv.py)
+# ---------------------------------------------------------------------------
+
+def _kv_decode(w: torch.Tensor, lv: torch.Tensor, bits: int, s: int,
+               d: int) -> torch.Tensor:
+    """(..., C, nw) int32 packed words + (..., C, s) levels -> (..., C, d)
+    f32 values: shift-mask unpack, then the level-table lookup (an index
+    >= s decodes to 0, as the reference's one-hot decode does)."""
+    lead = w.shape[:-1]
+    idx = encode.unpack(w.reshape(-1, w.shape[-1]), bits, d)
+    idx = idx.reshape(*lead, d)
+    lvf = lv.to(torch.float32)
+    val = torch.gather(lvf, -1, torch.clamp(idx, max=s - 1))
+    return torch.where(idx < s, val, 0.0)
+
+
+def kv_attend_block(q: torch.Tensor, kw: torch.Tensor, klv: torch.Tensor,
+                    vw: torch.Tensor, vlv: torch.Tensor, mask: torch.Tensor,
+                    *, bits: int, kv_heads: int, scale: float,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Fused dequant-attention for one sequence or a batch of them on
+    leading axes: q (..., T, H, hd) against a quantized KV context kw/vw
+    (..., C, nw) + klv/vlv (..., C, s) with mask (..., T, C) -> (..., T, H,
+    hd) f32. Masked scores are -2e38, so a fully masked row averages the
+    C positions uniformly, as the reference does."""
+    *lead, T, H, hd = q.shape
+    d = kv_heads * hd
+    s = klv.shape[-1]
+    C = kw.shape[-2]
+    k = _kv_decode(kw, klv, bits, s, d).reshape(*lead, C, kv_heads, hd)
+    v = _kv_decode(vw, vlv, bits, s, d).reshape(*lead, C, kv_heads, hd)
+    g = H // kv_heads
+    qg = q.to(torch.float32).reshape(*lead, T, kv_heads, g, hd)
+    sc = torch.einsum("...tkgh,...ckh->...kgtc", qg, k) * scale
+    sc = sc.reshape(*lead, H, T, C)
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    sc = torch.where(mask.unsqueeze(-3), sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)                         # (..., H, T, C)
+    o = torch.einsum("...kgtc,...ckh->...tkgh",
+                     p.reshape(*lead, kv_heads, g, T, C), v)
+    return o.reshape(*lead, T, H, hd)
+
+
+def kv_attend_ref(q: torch.Tensor, kw: torch.Tensor, klv: torch.Tensor,
+                  vw: torch.Tensor, vlv: torch.Tensor, mask: torch.Tensor,
+                  *, bits: int, kv_heads: int, scale: float,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Oracle for ``fused_kv.decode_attend``: q (B, T, H, hd), kw/vw
+    (B, C, nw), klv/vlv (B, C, s), mask (B, T, C) -> (B, T, H, hd) f32."""
+    return kv_attend_block(q, kw, klv, vw, vlv, mask.to(torch.bool),
+                           bits=bits, kv_heads=kv_heads, scale=scale,
+                           softcap=softcap)

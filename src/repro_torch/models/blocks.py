@@ -1,0 +1,97 @@
+"""Per-layer parameters and the pieces of a dense GQA attention layer that
+the serving engine applies (the reference's ``models/blocks.py``)."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import AttnSpec
+from repro_torch.models.layers import dense_init, gated_mlp, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str            # attn | attn_local | mamba | rwkv
+    moe: bool
+    d_ff: int
+    cross_attn: bool = False   # whisper decoder layers
+    causal: bool = True
+
+
+def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
+    local = spec.kind == "attn_local"
+    theta = (cfg.rope_theta_local
+             if (local and cfg.rope_theta_local) else cfg.rope_theta)
+    return AttnSpec(
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        attn_softcap=cfg.attn_softcap,
+        rope_theta=theta,
+    )
+
+
+def check_dense_gqa(cfg: ModelConfig, spec: LayerSpec) -> None:
+    """The port runs dense GQA attention layers with RMSNorm only."""
+    if (spec.kind not in ("attn", "attn_local") or spec.moe or cfg.mla
+            or cfg.norm != "rms" or spec.cross_attn):
+        raise NotImplementedError(
+            f"repro_torch ports dense GQA attention layers with RMSNorm "
+            f"only (kind={spec.kind!r}, moe={spec.moe}, "
+            f"mla={cfg.mla is not None}, norm={cfg.norm!r})")
+
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec,
+               gen: torch.Generator) -> dict:
+    """Float32 parameters of one dense GQA attention layer, in the
+    reference's layout."""
+    check_dense_gqa(cfg, spec)
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, F = cfg.resolved_head_dim, spec.d_ff
+    attn = {"wq": dense_init(gen, (D, H * hd)),
+            "wk": dense_init(gen, (D, KV * hd)),
+            "wv": dense_init(gen, (D, KV * hd)),
+            "wo": dense_init(gen, (H * hd, D))}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros(H * hd)
+        attn["bk"] = torch.zeros(KV * hd)
+        attn["bv"] = torch.zeros(KV * hd)
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.zeros(hd)
+        attn["k_norm"] = torch.zeros(hd)
+    return {
+        "norm1": {"scale": torch.zeros(D)},
+        "norm2": {"scale": torch.zeros(D)},
+        "attn": attn,
+        "ffn": {"wi_gate": dense_init(gen, (D, F)),
+                "wi_up": dense_init(gen, (D, F)),
+                "wo": dense_init(gen, (F, D))},
+    }
+
+
+def _apply_norm(cfg: ModelConfig, p, x):
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def _gqa_project(cfg: ModelConfig, p, x):
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _ffn_train(cfg: ModelConfig, spec: LayerSpec, p, x):
+    """Dense gated MLP. Returns (y, aux) like the reference."""
+    return gated_mlp(p, x, act=cfg.mlp_act), 0.0
