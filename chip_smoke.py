@@ -7,16 +7,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. env      torch / CUDA versions, the card's name and power limit.
 2. build    compile every CUDA kernel (one nvcc per source, in parallel).
-3. kernels  each kernel against its plain PyTorch version at the serving
-            path's shapes: ``encode_fused`` bit-equal, ``decode_attend``
-            within ATOL. Times per call of the kernel, the plain version
-            and the library yardstick: ``*ms`` from CUDA events around
-            back-to-back calls (host work between launches included),
-            ``*device_ms`` the kernels' own time from torch.profiler;
-            beside the least time the card could take (bytes over
-            3.35 TB/s or float32 operations over 67 TFLOP/s, the larger;
-            for ``decode_attend`` only the positions the mask admits).
-4. serve    the main path: ``repro_torch.launch.serve`` on full-width
+3. kernels  each kernel against its plain PyTorch version: ``encode_fused``
+            at the serving path's shapes, ``decode_attend`` within ATOL;
+            ``decode_fused_mean`` (L = 1, 3, 4), ``decode_fused_each`` and
+            ``qdq_fused`` (rr, bin, sign, clip) bit-equal by value. Times
+            per call of the kernel, the plain version and the library
+            yardstick: ``*ms`` from CUDA events around back-to-back calls
+            (host work between launches included), ``*device_ms`` the
+            kernels' own time from torch.profiler; beside the least time
+            the card could take (bytes over 3.35 TB/s or float32
+            operations over 67 TFLOP/s, the larger; for ``decode_attend``
+            only the positions the mask admits). The training kernels are
+            timed at the training path's shape (66,058 buckets of 2048).
+4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
             prompt tokens and 32 new tokens after a warm-up request. Both
@@ -28,6 +31,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 6. profile  device time by kernel and by category over four decode steps
             (torch.profiler), beside the same steps' wall time without
             the profiler; busy share = device time / unprofiled wall.
+7. train    the training path: ``repro_torch.launch.train`` on full-width
+            lm-100m (f32 weights from seed 0), orq-9, bucket 2048, batch
+            8, seq 128, a world of one on NCCL (``file://`` store): 3
+            steps, then 2 with error feedback. The four training kernels'
+            counters are zeroed just before and must read encode 10,
+            mean 5, each 5, qdq 2 just after; losses finite; wire bytes
+            per worker 140,042,960. Then device time by category over
+            two steps (torch.profiler), beside their unprofiled wall.
+8. exchange the smoke-size fused exchange of a buffer of multiples of 1/64
+            (every ORQ prefix sum exact in any order) on the card and on
+            the CPU (gloo): outputs and EF residuals bit-equal.
 
 Then the kernels JSON line, the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -40,6 +54,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -118,10 +133,12 @@ def device_ms(fn, calls: int = 10) -> float:
 
 def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
-    if "decode_attend" in n:
-        return "decode_attend"
-    if "encode_fused" in n:
-        return "encode_fused"
+    for k in ("decode_attend", "encode_fused", "qdq_fused", "decode_mean",
+              "decode_each"):
+        if k in n:
+            return k
+    if "nccl" in n:
+        return "nccl"
     if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     if any(k in n for k in ("sort", "radix", "scan")):
@@ -199,6 +216,29 @@ def check_encode(torch, dev):
         if mism:
             raise AssertionError(f"encode_fused {name}: {mism} words differ "
                                  f"from the plain version")
+    # the training path's shape (both exchange phases encode one buffer)
+    v, lv, rb, mask = _train_shape_inputs(torch, dev, g)
+    args = (v, lv, rb, mask, None)
+    kern = lambda: fe.encode_fused_cuda(*args, bits=4)
+    plain = lambda: fe.encode_fused_plain(*args, bits=4)
+    got = kern()
+    mism = _mismatch(torch, got, plain())
+    ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
+        plain, reps=2, rounds=3)
+    dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
+    moved = nbytes(*args, got)
+    b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * 9 + 8)))
+    results["train_main_shape"] = dict(
+        shape=[TRAIN_NB, TRAIN_D], s=9, bits=4, mode="rr", mask="exchange",
+        words_mismatched=mism, max_abs_err=float(mism), ms=ms,
+        plain_ms=plain_ms, library_ms=None, device_ms=dev_ms,
+        plain_device_ms=plain_dev_ms, bytes=moved, bound_ms=b_ms,
+        bound_by=b_by)
+    emit("kernel", kernel="encode_fused", case="train_main_shape",
+         **results["train_main_shape"])
+    if mism:
+        raise AssertionError(f"encode_fused at the training shape: {mism} "
+                             f"words differ from the plain version")
     return results
 
 
@@ -295,6 +335,157 @@ def check_attend(torch, dev):
             raise AssertionError(f"decode_attend {name}: max abs err {err} "
                                  f"> {ATOL_ATTEND}")
     return results
+
+
+# training path's shape: lm-100m's 135,285,504 gradients in buckets of 2048
+TRAIN_NB, TRAIN_D = 66_058, 2048
+
+
+def _train_shape_inputs(torch, dev, g):
+    """(values, orq-9 levels, rounding words, mask) of one gradient buffer
+    at the training path's bucket layout: lm-100m's 135,285,504 values,
+    the ragged tail of the last bucket masked, as the exchange passes it."""
+    from repro_torch.core import levels as lvmod
+    mask = (torch.arange(TRAIN_NB * TRAIN_D, device=dev) < 135_285_504
+            ).reshape(TRAIN_NB, TRAIN_D)
+    v = torch.where(mask, (torch.randn((TRAIN_NB, TRAIN_D), generator=g)
+                           * 1e-3).to(dev), 0.0)
+    rb = torch.randint(-2 ** 31, 2 ** 31, (TRAIN_NB, TRAIN_D), device=dev,
+                       dtype=torch.int64).to(torch.int32)
+    return v, lvmod.orq_levels(v, mask, 3), rb, mask
+
+
+def _rand_words(torch, g, shape):
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _mismatch(torch, got, want) -> int:
+    """Elements that differ by value (-0.0 == 0.0, as torch.equal)."""
+    return int((got.cpu() != want.cpu()).sum())
+
+
+def check_decode(torch, dev):
+    """decode_fused_mean / _each against their plain versions (bit-equal by
+    value) at L = 1, 3, 4, 4 bits, d 2048 with a ragged row, and at 1, 3
+    and 5 bits; then both timed at the training path's shape (L = 1)."""
+    from repro_torch.core import encode
+    from repro_torch.kernels import fused_decode as fd
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    cases = {  # name -> (L, nb, d, bits, s)
+        "L1": (1, 64, 2048, 4, 9), "L3": (3, 64, 2048, 4, 9),
+        "L4": (4, 64, 2048, 4, 9), "L3_ragged_d2047": (3, 64, 2047, 4, 9),
+        "bits1": (3, 64, 300, 1, 2), "bits3": (3, 64, 300, 3, 5),
+        "bits5": (3, 64, 300, 5, 17),
+    }
+    worst = {"decode_fused_mean": 0.0, "decode_fused_each": 0.0}
+    for name, (L, nb, d, bits, s) in cases.items():
+        words = _rand_words(torch, g, (L, nb, encode.packed_words(d, bits)))
+        levels = torch.sort(torch.randn((L, nb, s), generator=g) * 0.3).values
+        row = dict(L=L, shape=[nb, d], bits=bits, s=s)
+        for kname, plain, cuda in (
+                ("decode_fused_mean", fd.decode_fused_mean_plain,
+                 fd.decode_fused_mean_cuda),
+                ("decode_fused_each", fd.decode_fused_each_plain,
+                 fd.decode_fused_each_cuda)):
+            want = plain(words, levels, d=d, bits=bits)
+            got = cuda(words.to(dev), levels.to(dev), d=d, bits=bits)
+            torch.cuda.synchronize()
+            mism = _mismatch(torch, got, want)
+            err = float((got.cpu() - want).abs().max())
+            worst[kname] = max(worst[kname], err)
+            emit("kernel", kernel=kname, case=name, mismatched=mism,
+                 max_abs_err=err, **row)
+            if mism:
+                raise AssertionError(f"{kname} {name}: {mism} values differ "
+                                     f"from the plain version")
+    # the training path's shape: L = 1, 66,058 rows of 2048, 4 bits
+    words = _rand_words(torch, g, (1, TRAIN_NB, TRAIN_D // 8)).to(dev)
+    levels = torch.sort(torch.randn((1, TRAIN_NB, 9), generator=g)
+                        ).values.to(dev)
+    results = {}
+    for kname, plain, cuda in (
+            ("decode_fused_mean", fd.decode_fused_mean_plain,
+             fd.decode_fused_mean_cuda),
+            ("decode_fused_each", fd.decode_fused_each_plain,
+             fd.decode_fused_each_cuda)):
+        kern = lambda: cuda(words, levels, d=TRAIN_D, bits=4)
+        pl = lambda: plain(words, levels, d=TRAIN_D, bits=4)
+        got = kern()
+        mism = _mismatch(torch, got, pl())
+        ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
+            pl, reps=2, rounds=3)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
+        moved = nbytes(words, levels, got)
+        b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D))
+        results[kname] = dict(
+            shape=[1, TRAIN_NB, TRAIN_D], bits=4, s=9, mismatched=mism,
+            max_abs_err=worst[kname], ms=ms, plain_ms=plain_ms,
+            library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel=kname, case="train_main_shape",
+             **results[kname])
+        if mism:
+            raise AssertionError(f"{kname} at the training shape: {mism} "
+                                 f"values differ from the plain version")
+        del got
+    return results
+
+
+def check_qdq(torch, dev):
+    """qdq_fused against its plain version (bit-equal by value) in modes
+    rr, bin and sign, with and without a clip and a mask; then timed at
+    the training path's shape (rr, orq-9 levels, the exchange's mask)."""
+    from repro_torch.kernels import fused_encode as fe
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    cases = {  # name -> (nb, d, s, mode, masked, clip_c)
+        "rr": (64, 2048, 9, "rr", True, None),
+        "rr_clip2.5": (64, 2048, 9, "rr", False, 2.5),
+        "rr_ragged_d300_s5": (64, 300, 5, "rr", True, None),
+        "bin": (64, 2048, 2, "bin", True, None),
+        "sign_clip": (64, 2048, 2, "sign", False, 1.7),
+    }
+    worst = 0.0
+    for name, (nb, d, s, mode, masked, clip_c) in cases.items():
+        v = torch.randn((nb, d), generator=g) * 0.3
+        mask = torch.rand((nb, d), generator=g) > 0.1 if masked else None
+        lv = torch.sort(torch.randn((nb, s), generator=g) * 0.3).values
+        rb = _rand_words(torch, g, (nb, d)) if mode == "rr" else None
+        lim = fe.clip_limit(v, mask, clip_c)
+        cpu = (v, lv, rb, mask, lim)
+        want = fe.qdq_fused_plain(*cpu, mode=mode)
+        got = fe.qdq_fused_cuda(*[None if t is None else t.to(dev)
+                                  for t in cpu], mode=mode)
+        torch.cuda.synchronize()
+        mism = _mismatch(torch, got, want)
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+        emit("kernel", kernel="qdq_fused", case=name, shape=[nb, d], s=s,
+             mode=mode, mask=masked, clip_c=clip_c, mismatched=mism)
+        if mism:
+            raise AssertionError(f"qdq_fused {name}: {mism} values differ "
+                                 f"from the plain version")
+    v, lv, rb, mask = _train_shape_inputs(torch, dev, g)
+    args = (v, lv, rb, mask, None)
+    kern = lambda: fe.qdq_fused_cuda(*args, mode="rr")
+    pl = lambda: fe.qdq_fused_plain(*args, mode="rr")
+    got = kern()
+    mism = _mismatch(torch, got, pl())
+    ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(pl, reps=2,
+                                                              rounds=3)
+    dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
+    moved = nbytes(v, lv, rb, mask, got)
+    b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * 9 + 8)))
+    res = dict(shape=[TRAIN_NB, TRAIN_D], s=9, mode="rr", mismatched=mism,
+               max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+               device_ms=dev_ms, plain_device_ms=plain_dev_ms, bytes=moved,
+               bound_ms=b_ms, bound_by=b_by)
+    emit("kernel", kernel="qdq_fused", case="train_main_shape", **res)
+    if mism:
+        raise AssertionError(f"qdq_fused at the training shape: {mism} "
+                             f"values differ from the plain version")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +618,162 @@ def profile_decode(torch, eng):
     eng.run()
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", "lm-100m", "--quant", "orq-9", "--bucket", "2048",
+              "--batch", "8", "--seq", "128", "--seed", "0",
+              "--log-every", "1"]
+TRAIN_WIRE_BYTES = 140_042_960
+TRAIN_EXPECT = {"encode_fused": 10, "decode_fused_mean": 5,
+                "decode_fused_each": 5, "qdq_fused": 2}
+
+
+def _train_counters():
+    from repro_torch.kernels import fused_decode, fused_encode
+    return {"encode_fused": fused_encode.encode_fused_cuda,
+            "decode_fused_mean": fused_decode.decode_fused_mean_cuda,
+            "decode_fused_each": fused_decode.decode_fused_each_cuda,
+            "qdq_fused": fused_encode.qdq_fused_cuda}
+
+
+def run_train_path(torch):
+    """3 orq-9 steps, then 2 with error feedback, through the launcher on
+    the world of one that main() started."""
+    from repro_torch.launch import train as launcher
+
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, extra in (("orq9", ["--steps", "3"]),
+                        ("orq9_ef", ["--steps", "2", "--error-feedback"])):
+        t0 = time.perf_counter()
+        r = launcher.train(TRAIN_ARGS + extra)
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in r["history"]]
+        runs[name] = r
+        emit("train", run=name, args=" ".join(TRAIN_ARGS + extra),
+             wall_s=wall, losses=losses,
+             step_s=r["step_s"], step_p50_ms=statistics.median(
+                 r["step_s"]) * 1e3,
+             wire_bytes_per_worker=r["wire_bytes_per_worker"],
+             collective_launches_per_step=r["collective_launches_per_step"],
+             n_params=r["n_params"], world_size=r["world_size"],
+             params_sha256=r["params_sha256"])
+        if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+            raise AssertionError(f"train {name}: non-finite loss {losses}")
+        if r["wire_bytes_per_worker"] != TRAIN_WIRE_BYTES:
+            raise AssertionError(f"wire bytes {r['wire_bytes_per_worker']} "
+                                 f"!= {TRAIN_WIRE_BYTES}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    emit("train", run="launches", launches=launches, expected=TRAIN_EXPECT,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if launches != TRAIN_EXPECT:
+        raise AssertionError(f"training launches {launches} != "
+                             f"{TRAIN_EXPECT}")
+    return launches, runs["orq9_ef"]["state"]
+
+
+def profile_train(torch, state):
+    """Device time by category over two orq-9 + EF steps, beside the same
+    steps' wall time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config("lm-100m")
+    step_fn = make_train_step(
+        LM(cfg), TrainConfig(policy=QuantPolicy.parse("orq-9"),
+                             error_feedback=True), constant_lr(0.05))
+    data = SyntheticLM(cfg.vocab_size, 128, 8, seed=0)
+    batches = [data.batch(i, device="cuda") for i in range(2)]
+    key = prng.key(0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, _ = step_fn(state, b, key)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            state, _ = step_fn(state, b, key)
+        torch.cuda.synchronize()
+    rows = _kernel_events(prof)
+    total = sum(r[0] for r in rows)
+    by_cat = {}
+    for us, name, count in rows:
+        c = by_cat.setdefault(_category(name), {"device_us": 0.0,
+                                                "launches": 0})
+        c["device_us"] += us
+        c["launches"] += count
+    emit("train_profile", window="2 steps, lm-100m orq-9 + EF, batch 8 x 128",
+         wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
+         kernel_launches=sum(r[2] for r in rows),
+         device_busy_share=total / 1e3 / (plain_wall * 1e3),
+         by_category=by_cat,
+         top=[{"name": k[:90], "count": c, "device_us": us}
+              for us, k, c in rows[:12]])
+
+
+def check_exchange_card_vs_cpu(torch, dev):
+    """Smoke lm-100m's fused exchange of one gradient buffer of multiples
+    of 1/64 in [-1, 1], on the card (NCCL) and on the CPU (a gloo group of
+    the same world): the means and the EF residuals are bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.exchange import PartitionedExchange
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import LM
+
+    model = LM(get_smoke_config("lm-100m"))
+    ap = model.abstract_params()
+    pol = QuantPolicy.parse("orq-9", bucket_size=2048)
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    out = {}
+    for where, group in ((dev, None), ("cpu", gloo)):
+        pex = PartitionedExchange.build(pol, ap, group,
+                                        paths=model.param_paths(ap))
+        n = pex.layout.size
+        g = torch.Generator().manual_seed(5)
+        buf = (torch.randint(-64, 65, (n,), generator=g).float() / 64
+               ).to(where)
+        key = prng.key(9, device=where)
+        out[str(where)] = (pex.exchange_parts([buf], key)[0].cpu(),
+                           pex.local_qdq_parts([buf], key)[0].cpu())
+    (m_card, q_card), (m_cpu, q_cpu) = out[str(dev)], out["cpu"]
+    mism = _mismatch(torch, m_card, m_cpu) + _mismatch(torch, q_card, q_cpu)
+    emit("exchange", what="smoke lm-100m fused exchange + EF qdq of a "
+         "multiple-of-1/64 buffer, card (NCCL) vs CPU (gloo)", n=n,
+         mismatched=mism, mean_abs=float(m_card.abs().mean()))
+    dist.destroy_process_group(gloo)
+    if mism:
+        raise AssertionError(f"card and CPU exchanges differ in {mism} "
+                             f"values")
+
+
+def start_world(torch):
+    """A world of one process on NCCL, rendezvous through a file store in a
+    temporary directory (no network)."""
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    return dist
+
+
 def main() -> int:
     import torch
 
@@ -458,26 +805,53 @@ def main() -> int:
 
     enc = check_encode(torch, dev)
     att = check_attend(torch, dev)
+    dec = check_decode(torch, dev)
+    qdq = check_qdq(torch, dev)
     launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
     profile_decode(torch, eng)
+    del eng
+    dist = start_world(torch)
+    try:
+        train_launches, state = run_train_path(torch)
+        profile_train(torch, state)
+        del state
+        check_exchange_card_vs_cpu(torch, dev)
+    finally:
+        dist.destroy_process_group()
 
     e, a = enc["decode_rows16"], att["decode_b8"]
+
+    def row(name, source, replaces, m, by_path):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+
+    t = enc["train_main_shape"]
     kernels = [
-        {"name": "encode_fused", "route": "cuda",
-         "source": "src/repro_torch/csrc/encode_fused.cu",
-         "replaces": "src/repro/kernels/fused_encode.py:255",
-         "launches": launches["encode_fused"],
-         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-         "bound_by": e["bound_by"], "library_ms": None},
-        {"name": "decode_attend", "route": "cuda",
-         "source": "src/repro_torch/csrc/decode_attend.cu",
-         "replaces": "src/repro/kernels/fused_kv.py:70",
-         "launches": launches["decode_attend"],
-         "max_abs_err": a["max_abs_err"], "ms": a["ms"],
-         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-         "bound_by": a["bound_by"], "library_ms": a["library_ms"]},
+        dict(row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
+                 "src/repro/kernels/fused_encode.py:255", e,
+                 {"serve": launches["encode_fused"],
+                  "train": train_launches["encode_fused"]}),
+             train_shape={k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "device_ms")}),
+        row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
+            "src/repro/kernels/fused_kv.py:70", a,
+            {"serve": launches["decode_attend"]}),
+        row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
+            "src/repro/kernels/fused_encode.py:283", qdq,
+            {"train": train_launches["qdq_fused"]}),
+        row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
+            "src/repro/kernels/fused_decode.py:84",
+            dec["decode_fused_mean"],
+            {"train": train_launches["decode_fused_mean"]}),
+        row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
+            "src/repro/kernels/fused_decode.py:107",
+            dec["decode_fused_each"],
+            {"train": train_launches["decode_fused_each"]}),
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

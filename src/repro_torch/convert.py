@@ -1,4 +1,5 @@
-"""Carry a reference params tree across to the port.
+"""Carry a reference params tree, or a whole training state, across to
+the port.
 
 The port keeps the reference's params layout (dicts, the tuple of groups,
 the stacked ``(repeats, ...)`` axis), so conversion is a tree map over
@@ -35,3 +36,17 @@ def params_from_jax(tree, device=None):
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def state_from_jax(state, device=None):
+    """A reference ``TrainState`` of the replicated mode (params, SGD
+    momentum, params-shaped EF residuals or None, step), its leaves
+    fetched as numpy (e.g. ``jax.tree_util.tree_map(np.asarray, state)``
+    or the state itself) -> the port's ``TrainState`` on ``device``."""
+    from repro_torch.train.state import TrainState
+
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt=params_from_jax(state.opt, device),
+        step=int(np.asarray(state.step)),
+        ef=None if state.ef is None else params_from_jax(state.ef, device))

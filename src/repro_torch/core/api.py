@@ -1,8 +1,9 @@
-"""Public quantization API: the scheme registry and its name grammar.
+"""Public quantization API: config + the scheme registry and its grammar.
 
-``make_quantizer`` turns a scheme name into the stateless ``Quantizer``
-recipe by looking the scheme family up in a registry, exactly as the
-reference's ``core/api.py`` does. Built-in names (paper §5 nomenclature):
+``QuantConfig`` is what flows through launcher flags and policies;
+``make_quantizer`` turns it into the stateless ``Quantizer`` recipe by
+looking the scheme family up in a registry, exactly as the reference's
+``core/api.py`` does. Built-in names (paper §5 nomenclature):
 
     fp | orq-3 | orq-5 | orq-9 | orq-17 | bingrad-pb | bingrad-b |
     terngrad | qsgd-5 | qsgd-9 | linear-5 | linear-9 | signsgd | minmax2
@@ -11,11 +12,30 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.quantizers import Quantizer
 
 _NAME_RE = re.compile(r"^([a-z]+[a-z0-9]*?)(?:-(pb|b|\d+))?$")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    name: str = "fp"               # e.g. "orq-9"
+    bucket_size: int = 2048
+    clip_c: Optional[float] = None
+    refine_iters: int = 0
+    lloyd_iters: int = 0
+    server_requant: bool = True    # Algorithm 2 option (b): quantize the
+                                   # averaged gradient on the way back down
+
+    def to_quantizer(self) -> Quantizer:
+        if self.refine_iters or self.lloyd_iters:
+            raise NotImplementedError(
+                "refine_iters / lloyd_iters belong to level solvers that are "
+                "not ported to repro_torch yet (see ROADMAP.md)")
+        return make_quantizer(self.name, bucket_size=self.bucket_size,
+                              clip_c=self.clip_c)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,318 @@
+"""Fused flat-buffer gradient exchange: one collective for the whole tree
+(the reference's ``core/comm/exchange.py``, flat mode).
+
+    GradLayout          static flatten/unflatten plan for a gradient tree
+                        (per-leaf offsets/sizes/dtypes), leaves in the
+                        reference's canonical order (sorted dict keys,
+                        ``utils.pytree``), so the flat buffer, its bucket
+                        boundaries and every rounding decision match;
+    GradientExchange    ONE quantized all-reduce over the fused f32 buffer
+                        (optionally size-capped spans with a per-span key
+                        fold) plus the matching fused ``local_qdq`` for
+                        error-feedback residuals;
+    PolicyLayout /      per-parameter-group policies: leaves grouped by
+    PartitionedExchange their resolved QuantConfig into contiguous
+                        segments, one fused exchange per group. A uniform
+                        policy is exactly one group with an unfolded key.
+
+The compute side goes through ``core/comm/wire.py`` and its kernels.
+The two-level (``intra_axes``) mode is not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.api import QuantConfig
+from repro_torch.core.comm import wire
+from repro_torch.core.comm.collectives import (_check_schedule,
+                                               local_qdq_comm_layout,
+                                               quantized_all_reduce_mean)
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.quantizers import Quantizer
+from repro_torch.utils.pytree import (tree_flatten_with_path, tree_leaves,
+                                      tree_unflatten)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSlot:
+    """One leaf's span inside its fused buffer."""
+
+    path: str
+    shape: Tuple[int, ...]
+    dtype: Any
+    offset: int
+    size: int
+
+
+def _slot(path: str, leaf, offset: int) -> LeafSlot:
+    shape = tuple(leaf.shape)
+    return LeafSlot(path=path, shape=shape, dtype=leaf.dtype, offset=offset,
+                    size=math.prod(shape))
+
+
+def _same_count(what: str, got: int, want: int) -> None:
+    if got != want:
+        raise ValueError(f"{got} {what} given, the layout has {want}")
+
+
+def _leaf(buf: torch.Tensor, s: LeafSlot, restore_dtype: bool):
+    leaf = buf[s.offset:s.offset + s.size].reshape(s.shape)
+    return leaf.to(s.dtype) if restore_dtype else leaf
+
+
+@dataclasses.dataclass(frozen=True)
+class GradLayout:
+    """Static flatten/unflatten plan: leaf order, spans, dtype restore."""
+
+    treedef: Any
+    slots: Tuple[LeafSlot, ...]
+    size: int                    # total element count of the fused buffer
+
+    @classmethod
+    def from_tree(cls, tree) -> "GradLayout":
+        pairs, treedef = tree_flatten_with_path(tree)
+        slots, off = [], 0
+        for path, leaf in pairs:
+            slots.append(_slot(path, leaf, off))
+            off += slots[-1].size
+        return cls(treedef=treedef, slots=tuple(slots), size=off)
+
+    def flatten(self, tree) -> torch.Tensor:
+        """Tree -> (size,) contiguous f32 buffer (canonical leaf order)."""
+        leaves = tree_leaves(tree)
+        _same_count("leaves", len(leaves), len(self.slots))
+        return torch.cat([x.to(torch.float32).reshape(-1) for x in leaves])
+
+    def unflatten(self, buf: torch.Tensor, *, restore_dtype: bool = True):
+        """(size,) buffer -> tree of views (cast back to each leaf's dtype
+        unless ``restore_dtype=False``: error-feedback residuals stay
+        f32)."""
+        return tree_unflatten(self.treedef, [_leaf(buf, s, restore_dtype)
+                                             for s in self.slots])
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientExchange:
+    """Fused Algorithm 2 exchange over a flat buffer, on the process group
+    ``group`` (None: the default group).
+
+    ``max_chunk_elems`` optionally caps the per-collective buffer size:
+    the buffer is split into ceil(n / cap) contiguous spans, each
+    exchanged independently with the key folded by the span index;
+    :meth:`local_qdq_flat` applies the identical schedule, so
+    error-feedback residuals stay bit-consistent with what was sent."""
+
+    qz: Quantizer
+    group: Any = None
+    server_requant: bool = True
+    max_chunk_elems: Optional[int] = None
+    intra_axes: Tuple[str, ...] = ()
+    pipeline_chunks: int = 1
+
+    def __post_init__(self):
+        if self.max_chunk_elems is not None and self.max_chunk_elems <= 0:
+            raise ValueError(f"max_chunk_elems must be positive, got "
+                             f"{self.max_chunk_elems}")
+        if self.intra_axes:
+            raise NotImplementedError(
+                "the two-level (intra_axes) exchange is not ported to "
+                "repro_torch yet (see ROADMAP.md)")
+        _check_schedule(self.pipeline_chunks)
+
+    def spans(self, n: int) -> List[Tuple[int, int]]:
+        cap = self.max_chunk_elems
+        if not cap or n <= cap:
+            return [(0, n)]
+        return [(a, min(a + cap, n)) for a in range(0, n, cap)]
+
+    def _span_key(self, key: torch.Tensor, i: int) -> torch.Tensor:
+        return prng.fold_in(key, i) if self.max_chunk_elems else key
+
+    def exchange_flat(self, flat: torch.Tensor, key: torch.Tensor, *,
+                      worker_id: Optional[int] = None) -> torch.Tensor:
+        """(n,) local gradient buffer -> (n,) across-worker mean, identical
+        on every worker: one quantized all-reduce per span."""
+        outs = [quantized_all_reduce_mean(
+                    flat[a:b], self.qz, self._span_key(key, i),
+                    group=self.group, worker_id=worker_id,
+                    server_requant=self.server_requant)
+                for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def local_qdq_flat(self, flat: torch.Tensor, key: torch.Tensor, *,
+                       worker_id: Optional[int] = None) -> torch.Tensor:
+        """This worker's own dequantized buffer, bit-identical to its
+        phase-1 contribution (same spans, layout and folded keys)."""
+        outs = [local_qdq_comm_layout(
+                    flat[a:b], self.qz, self._span_key(key, i),
+                    group=self.group, worker_id=worker_id)
+                for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    # -- static cost accounting --------------------------------------------
+    def collective_launches(self, n: int) -> int:
+        """Collective launches for one exchange of n elements: per span,
+        2 all_to_all (words, levels) + 2 all_gather when re-quantizing,
+        1 f32 all_gather otherwise; fp = 1 all-reduce per span."""
+        per_span = 1 if self.qz.is_identity else (
+            4 if self.server_requant else 3)
+        return per_span * len(self.spans(n))
+
+    def wire_bytes_per_worker(self, n: int, n_workers: int) -> float:
+        """Bytes one worker transmits per exchange (uplink phase 1 +
+        phase-2 broadcast of its own chunk), after chunk/bucket padding."""
+        if self.qz.is_identity:
+            return 4.0 * n
+        total = 0.0
+        for a, b in self.spans(n):
+            chunk = -(-(b - a) // max(n_workers, 1))
+            d_eff = wire.bucket_len(chunk, self.qz.bucket_size)
+            nbc = -(-chunk // d_eff)                 # buckets per chunk
+            up = wire.wire_unit_bytes(self.qz, nbc * n_workers, d_eff)
+            down = (wire.wire_unit_bytes(self.qz, nbc, d_eff)
+                    if self.server_requant else 4.0 * chunk)
+            total += up + down
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSegment:
+    """One policy group's contiguous segment."""
+
+    cfg: QuantConfig
+    leaf_ids: Tuple[int, ...]    # canonical leaf order indices, ascending
+    size: int                    # total element count of the group buffer
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyLayout:
+    """Canonical leaves grouped by resolved QuantConfig into contiguous
+    per-group buffers (groups in order of first appearance). A uniform
+    policy yields one group whose buffer equals ``GradLayout``'s."""
+
+    treedef: Any
+    slots: Tuple[LeafSlot, ...]
+    groups: Tuple[GroupSegment, ...]
+    leaf_group: Tuple[int, ...]          # leaf i -> index into groups
+
+    @classmethod
+    def from_tree(cls, tree, policy: QuantPolicy, *,
+                  paths=None) -> "PolicyLayout":
+        """``paths`` optionally gives the leaf path strings the policy is
+        resolved against (a tree aligned with ``tree``, e.g.
+        ``LM.param_paths``); the default is the keystr paths of ``tree``."""
+        pairs, treedef = tree_flatten_with_path(tree)
+        path_strs = ([p for p, _ in pairs] if paths is None
+                     else tree_leaves(paths))
+        _same_count("paths", len(path_strs), len(pairs))
+        dead = policy.unmatched_rules(path_strs)
+        if dead:
+            warnings.warn(f"policy rules matched no parameter leaf: {dead}; "
+                          f"check the patterns against the model's param "
+                          f"paths", stacklevel=2)
+        group_ix: Dict[QuantConfig, int] = {}
+        g_leaves: List[List[int]] = []
+        g_off: List[int] = []
+        slots, leaf_group = [], []
+        for i, ((_, leaf), path) in enumerate(zip(pairs, path_strs)):
+            cfg = policy.resolve(path)
+            gi = group_ix.setdefault(cfg, len(group_ix))
+            if gi == len(g_leaves):
+                g_leaves.append([])
+                g_off.append(0)
+            slots.append(_slot(path, leaf, g_off[gi]))
+            g_off[gi] += slots[-1].size
+            g_leaves[gi].append(i)
+            leaf_group.append(gi)
+        groups = tuple(GroupSegment(cfg=c, leaf_ids=tuple(ls), size=off)
+                       for c, ls, off in zip(group_ix, g_leaves, g_off))
+        return cls(treedef=treedef, slots=tuple(slots), groups=groups,
+                   leaf_group=tuple(leaf_group))
+
+    @property
+    def size(self) -> int:
+        return sum(g.size for g in self.groups)
+
+    def flatten_groups(self, tree) -> Tuple[torch.Tensor, ...]:
+        """Tree -> one (group.size,) contiguous f32 buffer per group."""
+        leaves = tree_leaves(tree)
+        _same_count("leaves", len(leaves), len(self.slots))
+        return tuple(torch.cat([leaves[i].to(torch.float32).reshape(-1)
+                                for i in g.leaf_ids])
+                     for g in self.groups)
+
+    def unflatten_groups(self, bufs: Sequence[torch.Tensor], *,
+                         restore_dtype: bool = True):
+        """Per-group buffers -> tree of views."""
+        _same_count("buffers", len(bufs), len(self.groups))
+        return tree_unflatten(self.treedef, [
+            _leaf(bufs[self.leaf_group[i]], s, restore_dtype)
+            for i, s in enumerate(self.slots)])
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedExchange:
+    """Per-policy-group fused Algorithm 2: one ``GradientExchange`` per
+    group, each with its own key stream and wire accounting."""
+
+    layout: PolicyLayout
+    engines: Tuple[GradientExchange, ...]     # aligned with layout.groups
+
+    @classmethod
+    def build(cls, policy: QuantPolicy, tree, group=None, *, paths=None,
+              max_chunk_elems: Optional[int] = None,
+              intra_axes: Tuple[str, ...] = (),
+              pipeline_chunks: int = 1) -> "PartitionedExchange":
+        layout = PolicyLayout.from_tree(tree, policy, paths=paths)
+        engines = tuple(
+            GradientExchange(g.cfg.to_quantizer(), group,
+                             server_requant=g.cfg.server_requant,
+                             max_chunk_elems=max_chunk_elems,
+                             intra_axes=tuple(intra_axes),
+                             pipeline_chunks=pipeline_chunks)
+            for g in layout.groups)
+        return cls(layout=layout, engines=engines)
+
+    def _group_key(self, key: torch.Tensor, gi: int) -> torch.Tensor:
+        # a single group is the uniform fused exchange: its key stays
+        # unfolded, bit-identical to GradientExchange on GradLayout
+        return key if len(self.engines) == 1 else prng.fold_in(key, gi)
+
+    @property
+    def is_identity(self) -> bool:
+        return all(e.qz.is_identity for e in self.engines)
+
+    def exchange_parts(self, bufs: Sequence[torch.Tensor], key, *,
+                       worker_id: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+        """Per-group local buffers -> per-group across-worker means."""
+        return tuple(eng.exchange_flat(buf, self._group_key(key, gi),
+                                       worker_id=worker_id)
+                     for gi, (eng, buf) in enumerate(zip(self.engines,
+                                                         bufs)))
+
+    def local_qdq_parts(self, bufs: Sequence[torch.Tensor], key, *,
+                        worker_id: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+        """Per-group local quantize -> dequantize, bit-consistent with
+        :meth:`exchange_parts`; identity groups pass through (zero
+        residual)."""
+        return tuple(
+            buf if eng.qz.is_identity
+            else eng.local_qdq_flat(buf, self._group_key(key, gi),
+                                    worker_id=worker_id)
+            for gi, (eng, buf) in enumerate(zip(self.engines, bufs)))
+
+    def collective_launches(self) -> int:
+        return sum(eng.collective_launches(g.size)
+                   for eng, g in zip(self.engines, self.layout.groups))
+
+    def wire_bytes_per_worker(self, n_workers: int) -> float:
+        return sum(eng.wire_bytes_per_worker(g.size, n_workers)
+                   for eng, g in zip(self.engines, self.layout.groups))

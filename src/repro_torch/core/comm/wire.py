@@ -7,10 +7,14 @@ One "wire unit" is a pair ``(words, levels)``:
             ``qz.wire_bits_per_element`` bits per element;
     levels  (nb, s)  float32 — the per-bucket runtime level tables.
 
-Port of the reference's ``core/comm/wire.py`` (the fused ``encode`` path):
-the level fit is plain PyTorch, everything after it is ONE
-``encode_fused`` launch. The decode paths, the multi-pass baseline and
-BinGrad-b's fused encode come with the training slice (ROADMAP.md).
+Port of the reference's ``core/comm/wire.py`` (the fused paths): the
+level fit is plain PyTorch, everything after it is ONE kernel launch:
+``encode_fused`` (encode), ``qdq_fused`` (the error-feedback residual),
+``decode_fused_mean`` (phase 1's server side) or ``decode_fused_each``
+(phase 2's broadcast decode). The rounding stream is drawn on the device
+of the values it rounds, whatever device the key was built on. The
+multi-pass baseline and BinGrad-b's fused encode are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,6 +31,11 @@ from repro_torch.kernels import ops
 _RR_METHODS = ("orq", "terngrad", "qsgd", "linear", "minmax2", "bingrad_pb")
 
 
+def bucket_len(chunk: int, d: int) -> int:
+    """Effective bucket length for a chunk of ``chunk`` elements."""
+    return min(d, max(chunk, 1))
+
+
 def _fused_mode(qz: Quantizer) -> str:
     """Static rounding mode of the fused stage for ``qz`` ('' = no fused
     path)."""
@@ -39,12 +48,33 @@ def _fused_mode(qz: Quantizer) -> str:
     return ""
 
 
-def encode_rbits(qz: Quantizer, key: torch.Tensor, shape):
+def encode_rbits(qz: Quantizer, key: torch.Tensor, shape, device=None):
     """The threefry stream :func:`encode` would draw for a ``shape`` bucket
-    layout (None for the deterministic schemes), as int32 bit patterns."""
+    layout (None for the deterministic schemes), as int32 bit patterns,
+    drawn on ``device`` (default: the key's)."""
     if _fused_mode(qz) != "rr":
         return None
-    return R.random_bits(key, shape)
+    return R.random_bits(key if device is None else key.to(device), shape)
+
+
+def _check_mode(qz: Quantizer) -> str:
+    mode = _fused_mode(qz)
+    if mode == "bin":
+        raise NotImplementedError(
+            "bingrad-b's fused encode (encode_bingrad_fused) is not ported "
+            "to repro_torch yet (see ROADMAP.md)")
+    if not mode:
+        raise NotImplementedError(
+            f"{qz.method!r} has no fused encode; the multi-pass encode is "
+            f"not ported to repro_torch yet (see ROADMAP.md)")
+    return mode
+
+
+def _fit(qz: Quantizer, bkt: torch.Tensor,
+         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-bucket levels; ``mask=None`` fits on every slot."""
+    return qz.fit(bkt, torch.ones_like(bkt, dtype=torch.bool)
+                  if mask is None else mask)
 
 
 def encode(qz: Quantizer, bkt: torch.Tensor, mask: Optional[torch.Tensor],
@@ -56,25 +86,53 @@ def encode(qz: Quantizer, bkt: torch.Tensor, mask: Optional[torch.Tensor],
     bkt/mask are (nb, d_eff); returns ``(words, levels)`` with masked-out
     slots forced to index 0. ``mask=None`` marks every slot valid: the fit
     sees an all-true mask and the kernel reads none. ``rbits`` optionally
-    supplies the rounding stream; the default draws it from ``key``."""
-    mode = _fused_mode(qz)
-    if mode == "bin":
-        raise NotImplementedError(
-            "bingrad-b's fused encode (encode_bingrad_fused) is not ported "
-            "to repro_torch yet (see ROADMAP.md)")
-    if not mode:
-        raise NotImplementedError(
-            f"{qz.method!r} has no fused encode; the multi-pass encode is "
-            f"not ported to repro_torch yet (see ROADMAP.md)")
-    fit_mask = (torch.ones_like(bkt, dtype=torch.bool) if mask is None
-                else mask)
-    levels = qz.fit(bkt, fit_mask)                        # runtime levels
+    supplies the rounding stream; the default draws it from ``key`` on
+    ``bkt``'s device."""
+    mode = _check_mode(qz)
+    levels = _fit(qz, bkt, mask)                          # runtime levels
     if mode == "rr" and rbits is None:
-        rbits = encode_rbits(qz, key, bkt.shape)
+        rbits = encode_rbits(qz, key, bkt.shape, bkt.device)
     words = ops.encode_fused(bkt, levels, rbits if mode == "rr" else None,
                              mask, bits=qz.wire_bits_per_element,
                              clip_c=qz.clip_c, mode=mode)
     return words, levels
+
+
+def qdq(qz: Quantizer, bkt: torch.Tensor, mask: Optional[torch.Tensor],
+        key: Optional[torch.Tensor]) -> torch.Tensor:
+    """Fused local quantize -> dequantize on the wire layout: (nb, d_eff)
+    values -> (nb, d_eff) f32, bit-identical to what :func:`encode` puts
+    on the wire (same fit, same clip, same rounding stream). One
+    ``qdq_fused`` launch; masked-out slots decode to level 0."""
+    mode = _check_mode(qz)
+    levels = _fit(qz, bkt, mask)
+    rbits = encode_rbits(qz, key, bkt.shape, bkt.device)
+    return ops.qdq_fused(bkt, levels, rbits, mask, clip_c=qz.clip_c,
+                         mode=mode)
+
+
+def decode(qz: Quantizer, words: torch.Tensor, levels: torch.Tensor,
+           d_eff: int, *, average: bool = True) -> torch.Tensor:
+    """Decode L stacked wire units in ONE launch: unpack + dequantize
+    [+ average]. ``average=True`` is the server side of phase 1 (-> (nb,
+    d_eff) mean); ``average=False`` is phase 2's broadcast decode (-> (L,
+    nb, d_eff))."""
+    bits = qz.wire_bits_per_element
+    if average:
+        return ops.decode_fused_mean(words, levels, d_eff, bits=bits)
+    return ops.decode_fused_each(words, levels, d_eff, bits=bits)
+
+
+def decode_mean(qz: Quantizer, words: torch.Tensor, levels: torch.Tensor,
+                d_eff: int) -> torch.Tensor:
+    """(L, nb, nw) words + (L, nb, s) levels -> (nb, d_eff) mean values."""
+    return decode(qz, words, levels, d_eff, average=True)
+
+
+def decode_each(qz: Quantizer, words: torch.Tensor, levels: torch.Tensor,
+                d_eff: int) -> torch.Tensor:
+    """(L, nb, nw) words + (L, nb, s) levels -> (L, nb, d_eff) values."""
+    return decode(qz, words, levels, d_eff, average=False)
 
 
 def wire_unit_bytes(qz: Quantizer, nb: int, d_eff: int) -> int:

@@ -2,12 +2,15 @@
 ``jax.random`` stream.
 
 The reference draws every rounding decision from ``jax.random.key`` /
-``fold_in`` / ``bits`` (``core/rounding.py``, ``serve/kv_cache.py``), in
-the mode the installed jax runs: ``jax_threefry_partitionable=True``
-(``jax/_src/prng.py``: ``threefry_seed``, ``_threefry2x32_lowering``,
-``threefry_fold_in``, ``_threefry_random_bits_partitionable``). This module
+``fold_in`` / ``bits`` (``core/rounding.py``, ``serve/kv_cache.py``) and
+its synthetic tokens from ``split`` / ``randint`` / ``uniform``
+(``data/synthetic.py``), in the mode the installed jax runs:
+``jax_threefry_partitionable=True`` (``jax/_src/prng.py``:
+``threefry_seed``, ``_threefry2x32_lowering``, ``threefry_fold_in``,
+``_threefry_random_bits_partitionable``, ``_threefry_split_foldlike``;
+``jax/_src/random.py``: ``_randint``, ``_uniform``). This module
 reproduces those words exactly so that the port rounds the same values the
-same way.
+same way and trains on the same tokens.
 
 A key is an ``(..., 2)`` int64 tensor holding two uint32 words; every
 function broadcasts over the leading axes, so one call derives the keys
@@ -21,6 +24,8 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
+
+from repro_torch.core.floats import fma_f32
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -76,21 +81,64 @@ def fold_in(k: torch.Tensor, data: IntLike) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
+def _counts(k: torch.Tensor, shape: Sequence[int]):
+    """(k1, k2, hi, lo): the key words broadcast against the (hi, lo)
+    words of each element's row-major index (``iota_2x32_shape``)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    lead = k.shape[:-1]
+    return (k[..., 0].reshape(*lead, 1), k[..., 1].reshape(*lead, 1),
+            idx >> 32, idx & MASK32)
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, num)`` in the partitionable mode
+    (``_threefry_split_foldlike``): key i is the threefry block of the
+    index i, both output words kept -> ``k.shape[:-1] + (num, 2)``."""
+    y1, y2 = threefry2x32(*_counts(k, (num,)))
+    return torch.stack([y1, y2], dim=-1)
+
+
 def bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` -> int64 tensor of uint32
     values, shape ``k.shape[:-1] + shape``. The partitionable stream
     hashes the (hi, lo) words of each element's row-major index and XORs
     the two outputs."""
     shape = tuple(int(n) for n in shape)
-    n = 1
-    for s in shape:
-        n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
-    lead = k.shape[:-1]
-    k1 = k[..., 0].reshape(*lead, 1)
-    k2 = k[..., 1].reshape(*lead, 1)
-    y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
-    return (y1 ^ y2).reshape(*lead, *shape)
+    y1, y2 = threefry2x32(*_counts(k, shape))
+    return (y1 ^ y2).reshape(tuple(k.shape[:-1]) + shape)
+
+
+def uniform(k: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: the top
+    23 bits of each word as the mantissa of a float in [1, 2), minus 1,
+    scaled (one fused multiply-add, as XLA computes it), and floored at
+    ``minval``."""
+    b = bits(k, shape)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.full_like(f, minval)
+    hi = torch.full_like(f, maxval)
+    return torch.maximum(lo, fma_f32(f, hi - lo, lo))
+
+
+def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` for int32 bounds:
+    two bit streams from ``split(k)``, combined modulo the span through
+    the multiplier ``(2**16 % span)**2 % span`` in uint32 arithmetic,
+    wrapping where jax's does
+    (``jax/_src/random.py: _randint``). -> int64 tensor."""
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError("randint takes int32 bounds")
+    span = maxval - minval if maxval > minval else 1
+    k1, k2 = split(k).unbind(dim=-2)
+    hi, lo = bits(k1, shape), bits(k2, shape)
+    mult = (((2 ** 16 % span) ** 2) & MASK32) % span   # uint32 product
+    off = (((hi % span) * mult) & MASK32) + (lo % span)
+    return minval + (off & MASK32) % span
 
 
 def to_int32(words: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,179 @@
+// Fused one-pass gradient DECODE for Hopper: shift-mask unpack -> level
+// lookup [-> mean over the L workers], bit-exact with the plain PyTorch
+// versions (repro_torch/kernels/ref.py: decode_fused_mean_ref,
+// decode_fused_each_ref).
+//
+// Replaces: the Pallas TPU kernels src/repro/kernels/fused_decode.py:
+//   decode_fused_mean (pl.pallas_call at line 84; body _decode_mean_kernel)
+//   decode_fused_each (pl.pallas_call at line 107; body _decode_each_kernel)
+//
+// What bounds them on an H100: bytes. Per bucket row the mean reads L rows
+// of nw packed words and L level tables and writes d floats; at the
+// training path's shape (L = 1, nb = 66,058, d = 2048, 4 bits) that is
+// 67.6 MB of words + 2.4 MB of levels read and 541 MB written, ~0.18 ms
+// at 3.35 TB/s. The f32 output dominates: it is 8x the packed input.
+//
+// Design: one block per bucket row (the mean) or per (row, worker) (each).
+// The row's level tables sit in shared memory. Each thread takes whole
+// words: it shifts the epw = 32 / BITS indices of a word out of one
+// register (BITS is a template parameter, so the lanes unroll), looks
+// each up in the table and writes epw consecutive floats. The (L, nb, d)
+// index tensor of the multi-pass path never exists. Shifts are logical:
+// the int32 storage is read as uint32_t. At 3 and 5 bits the top 2 bits
+// of each word are unused; a ragged row's tail lanes are not written.
+//
+// Exactness: an index >= s decodes to 0, like the reference's one-hot
+// sum, which equals the table entry by value (only a zero's sign can
+// differ). The mean accumulates acc = __fmaf_rn(val, inv, acc), worker by
+// worker l = 0..L-1, inv = f32(1/L): the Pallas kernel's `out += val *
+// (1.0 / L)` in its order, with the multiply and the add rounded once, as
+// XLA contracts them when the reference runs; so it is exact for any L.
+// The file is built with -fmad=false: no other multiply-add is fused.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxLevels = 17;
+constexpr int kThreads = 128;
+
+template <int BITS>
+__global__ void decode_mean_kernel(const uint32_t* __restrict__ words,
+                                   const float* __restrict__ levels,
+                                   float* __restrict__ out, int L, int nb,
+                                   int nw, int d, int s, float inv) {
+  extern __shared__ float lv[];  // (L, s): this row's level tables
+  const int row = blockIdx.x;
+  for (int i = threadIdx.x; i < L * s; i += blockDim.x) {
+    const int l = i / s;
+    lv[i] = levels[((size_t)l * nb + row) * s + (i - l * s)];
+  }
+  __syncthreads();
+
+  constexpr int kEpw = 32 / BITS;
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+    float acc[kEpw];
+#pragma unroll
+    for (int e = 0; e < kEpw; ++e) acc[e] = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      const uint32_t word = words[((size_t)l * nb + row) * nw + w];
+      const float* t = lv + l * s;
+#pragma unroll
+      for (int e = 0; e < kEpw; ++e) {
+        const uint32_t idx = (word >> (BITS * e)) & kMask;
+        const float val = idx < (uint32_t)s ? t[idx] : 0.0f;
+        acc[e] = __fmaf_rn(val, inv, acc[e]);
+      }
+    }
+    float* o = out + (size_t)row * d + (size_t)w * kEpw;
+    const int n = d - w * kEpw;  // lanes of this word inside the row
+#pragma unroll
+    for (int e = 0; e < kEpw; ++e)
+      if (e < n) o[e] = acc[e];
+  }
+}
+
+template <int BITS>
+__global__ void decode_each_kernel(const uint32_t* __restrict__ words,
+                                   const float* __restrict__ levels,
+                                   float* __restrict__ out, int nb, int nw,
+                                   int d, int s) {
+  __shared__ float lv[kMaxLevels];
+  const size_t r = (size_t)blockIdx.y * nb + blockIdx.x;  // (worker, row)
+  if (threadIdx.x < s) lv[threadIdx.x] = levels[r * s + threadIdx.x];
+  __syncthreads();
+
+  constexpr int kEpw = 32 / BITS;
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+    const uint32_t word = words[r * nw + w];
+    float* o = out + r * d + (size_t)w * kEpw;
+    const int n = d - w * kEpw;
+#pragma unroll
+    for (int e = 0; e < kEpw; ++e) {
+      const uint32_t idx = (word >> (BITS * e)) & kMask;
+      if (e < n) o[e] = idx < (uint32_t)s ? lv[idx] : 0.0f;
+    }
+  }
+}
+
+template <int BITS>
+cudaError_t launch_mean(const uint32_t* w, const float* lv, float* out,
+                        int L, int nb, int nw, int d, int s, float inv,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)L * s * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_mean_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  decode_mean_kernel<BITS><<<nb, kThreads, smem, stream>>>(w, lv, out, L, nb,
+                                                           nw, d, s, inv);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_each(const uint32_t* w, const float* lv, float* out,
+                        int L, int nb, int nw, int d, int s,
+                        cudaStream_t stream) {
+  decode_each_kernel<BITS><<<dim3(nb, L), kThreads, 0, stream>>>(
+      w, lv, out, nb, nw, d, s);
+  return cudaGetLastError();
+}
+
+bool bad_args(int L, int nb, int nw, int d, int s, int bits) {
+  return L <= 0 || nb <= 0 || nw <= 0 || d <= 0 || s < 1 || s > kMaxLevels ||
+         bits < 1 || bits > 5 || s > (1 << bits) ||
+         nw != (d + 32 / bits - 1) / (32 / bits);
+}
+
+}  // namespace
+
+extern "C" {
+
+// words: (L, nb, nw) uint32; levels: (L, nb, s) float32; out: (nb, d)
+// float32 mean. inv = float32(1 / L). Returns cudaGetLastError().
+int repro_decode_fused_mean(const void* words, const void* levels, void* out,
+                            int L, int nb, int nw, int d, int s, int bits,
+                            float inv, void* stream) {
+  if (bad_args(L, nb, nw, d, s, bits)) return (int)cudaErrorInvalidValue;
+  const uint32_t* w = (const uint32_t*)words;
+  const float* lv = (const float*)levels;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bits) {
+    case 1: return (int)launch_mean<1>(w, lv, o, L, nb, nw, d, s, inv, st);
+    case 2: return (int)launch_mean<2>(w, lv, o, L, nb, nw, d, s, inv, st);
+    case 3: return (int)launch_mean<3>(w, lv, o, L, nb, nw, d, s, inv, st);
+    case 4: return (int)launch_mean<4>(w, lv, o, L, nb, nw, d, s, inv, st);
+    default: return (int)launch_mean<5>(w, lv, o, L, nb, nw, d, s, inv, st);
+  }
+}
+
+// words: (L, nb, nw) uint32; levels: (L, nb, s) float32; out: (L, nb, d)
+// float32. Returns cudaGetLastError().
+int repro_decode_fused_each(const void* words, const void* levels, void* out,
+                            int L, int nb, int nw, int d, int s, int bits,
+                            void* stream) {
+  if (bad_args(L, nb, nw, d, s, bits) || L > 65535)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t* w = (const uint32_t*)words;
+  const float* lv = (const float*)levels;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bits) {
+    case 1: return (int)launch_each<1>(w, lv, o, L, nb, nw, d, s, st);
+    case 2: return (int)launch_each<2>(w, lv, o, L, nb, nw, d, s, st);
+    case 3: return (int)launch_each<3>(w, lv, o, L, nb, nw, d, s, st);
+    case 4: return (int)launch_each<4>(w, lv, o, L, nb, nw, d, s, st);
+    default: return (int)launch_each<5>(w, lv, o, L, nb, nw, d, s, st);
+  }
+}
+
+const char* repro_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,20 +1,27 @@
 // Fused one-pass ENCODE for Hopper: clip -> interval search -> round ->
 // mask -> uint32 bit-pack, bit-exact with the plain PyTorch version
 // (repro_torch/kernels/fused_encode.py: encode_fused_plain) and with the
-// reference.
+// reference; and QDQ, the same clip/round stage decoded in-register
+// (qdq_fused_plain), the error-feedback residual path.
 //
-// Replaces: the Pallas TPU kernel src/repro/kernels/fused_encode.py:
+// Replaces: the Pallas TPU kernels src/repro/kernels/fused_encode.py:
 //   encode_fused (pl.pallas_call at line 255; body _encode_kernel, stage
-//   _clip_round, packer _pack_words).
+//   _clip_round, packer _pack_words) and qdq_fused (pl.pallas_call at
+//   line 283; body _qdq_kernel).
 //
 // What bounds it on an H100: bytes. Per bucket row it reads d values and
 // d rounding words (4 B each), the level table and limit, and writes
 // ceil(d / epw) words; the arithmetic is a few compares per level. On the
 // serving path (2R = 16..128 rows of d = 768) the whole call moves
 // 0.1-0.8 MB, under a microsecond at 3.35 TB/s, so it is launch-bound.
+// qdq reads the same and writes d floats per row: at the training path's
+// shape (66,058 rows of 2048, with rounding words and mask) 1.76 GB, ~0.5
+// ms at 3.35 TB/s.
 //
 // Design: one block per bucket row, the row's level table (s <= 17) in
-// shared memory. Each thread produces whole output words: it rounds the
+// shared memory; both kernels share round_index, so their rounding
+// decisions are the same by construction. Each encode thread produces
+// whole output words: it rounds the
 // epw = 32 / bits elements of a word and shift-adds them in a register,
 // so no (nb, d) index tensor exists and the ragged tail word is zero-
 // padded in the register. Exactness: the file is compiled with
@@ -31,6 +38,42 @@ constexpr int kMaxLevels = 17;
 constexpr int kThreads = 128;
 
 enum Mode { kRR = 0, kBin = 1, kSign = 2 };
+
+// clip -> interval search -> round for one element x of a row whose level
+// table lv (ascending, s entries) sits in shared memory. L is the row's
+// clip limit (used when has_lim); rb the element's rounding word (mode rr).
+__device__ __forceinline__ uint32_t round_index(float x, const float* lv,
+                                                int s, int mode, bool has_lim,
+                                                float L, uint32_t rb) {
+  if (has_lim) x = fminf(L, fmaxf(-L, x));
+  if (mode == kRR) {
+    // Interval search fused with the neighbour-level selection: the
+    // table is ascending, so (x >= lv_j) is a prefix predicate.
+    int k = 0;
+    float lo = lv[0], hi = lv[1];
+    bool ge_prev = false;
+    for (int j = 0; j < s; ++j) {
+      const bool ge = x >= lv[j];
+      k += ge;
+      if (j >= 1 && j <= s - 2 && ge) lo = lv[j];
+      if (j >= 2 && ge_prev) hi = lv[j];
+      ge_prev = ge;
+    }
+    k = min(max(k - 1, 0), s - 2);
+    const float vc = fminf(fmaxf(x, lo), hi);
+    const float width = __fsub_rn(hi, lo);
+    const float p_up =
+        width > 0.0f ? __fdiv_rn(__fsub_rn(vc, lo), width) : 0.0f;
+    const float u = __fmul_rn(__uint2float_rn(rb),
+                              2.3283064365386963e-10f);  // 2^-32
+    return (uint32_t)k + (u < p_up ? 1u : 0u);
+  }
+  if (mode == kBin) {
+    const float thr = __fmul_rn(0.5f, __fadd_rn(lv[0], lv[1]));
+    return x >= thr ? 1u : 0u;
+  }
+  return x >= 0.0f ? 1u : 0u;
+}
 
 __global__ void encode_fused_kernel(const float* __restrict__ v,
                                     const float* __restrict__ levels,
@@ -56,39 +99,38 @@ __global__ void encode_fused_kernel(const float* __restrict__ v,
       if (col >= d) break;  // ragged tail: padded with index 0
       const size_t i = base + col;
       if (mask && !mask[i]) continue;  // masked slot: index 0
-      float x = v[i];
-      if (lim) x = fminf(L, fmaxf(-L, x));
-      uint32_t idx;
-      if (mode == kRR) {
-        // Interval search fused with the neighbour-level selection: the
-        // table is ascending, so (x >= lv_j) is a prefix predicate.
-        int k = 0;
-        float lo = lv[0], hi = lv[1];
-        bool ge_prev = false;
-        for (int j = 0; j < s; ++j) {
-          const bool ge = x >= lv[j];
-          k += ge;
-          if (j >= 1 && j <= s - 2 && ge) lo = lv[j];
-          if (j >= 2 && ge_prev) hi = lv[j];
-          ge_prev = ge;
-        }
-        k = min(max(k - 1, 0), s - 2);
-        const float vc = fminf(fmaxf(x, lo), hi);
-        const float width = __fsub_rn(hi, lo);
-        const float p_up =
-            width > 0.0f ? __fdiv_rn(__fsub_rn(vc, lo), width) : 0.0f;
-        const float u = __fmul_rn(__uint2float_rn(rbits[i]),
-                                  2.3283064365386963e-10f);  // 2^-32
-        idx = (uint32_t)k + (u < p_up ? 1u : 0u);
-      } else if (mode == kBin) {
-        const float thr = __fmul_rn(0.5f, __fadd_rn(lv[0], lv[1]));
-        idx = x >= thr ? 1u : 0u;
-      } else {
-        idx = x >= 0.0f ? 1u : 0u;
-      }
+      const uint32_t idx = round_index(v[i], lv, s, mode, lim != nullptr, L,
+                                       mode == kRR ? rbits[i] : 0u);
       acc += idx << (bits * e);  // disjoint bit ranges: add == or
     }
     out[(size_t)row * nw + w] = acc;
+  }
+}
+
+// qdq: the same clip/round stage, decoded in-register: out[i] = lv[idx],
+// a masked slot decodes to lv[0]. One block per row, one element per
+// thread per step (consecutive threads on consecutive elements).
+__global__ void qdq_fused_kernel(const float* __restrict__ v,
+                                 const float* __restrict__ levels,
+                                 const uint32_t* __restrict__ rbits,
+                                 const uint8_t* __restrict__ mask,
+                                 const float* __restrict__ lim,
+                                 float* __restrict__ out, int d, int s,
+                                 int mode) {
+  __shared__ float lv[kMaxLevels];
+  const int row = blockIdx.x;
+  if (threadIdx.x < s) lv[threadIdx.x] = levels[(size_t)row * s + threadIdx.x];
+  __syncthreads();
+
+  const float L = lim ? lim[row] : 0.0f;
+  const size_t base = (size_t)row * d;
+  for (int col = threadIdx.x; col < d; col += blockDim.x) {
+    const size_t i = base + col;
+    uint32_t idx = 0;
+    if (!mask || mask[i])
+      idx = round_index(v[i], lv, s, mode, lim != nullptr, L,
+                        mode == kRR ? rbits[i] : 0u);
+    out[i] = lv[idx];
   }
 }
 
@@ -109,6 +151,19 @@ int repro_encode_fused(const void* v, const void* levels, const void* rbits,
       (const float*)v, (const float*)levels, (const uint32_t*)rbits,
       (const uint8_t*)mask, (const float*)lim, (uint32_t*)out, d, s, bits,
       mode);
+  return (int)cudaGetLastError();
+}
+
+// Same inputs as repro_encode_fused; out: (nb, d) float32 decoded values.
+int repro_qdq_fused(const void* v, const void* levels, const void* rbits,
+                    const void* mask, const void* lim, void* out, int nb,
+                    int d, int s, int mode, void* stream) {
+  if (nb <= 0 || d <= 0 || s < 2 || s > kMaxLevels || mode < kRR ||
+      mode > kSign || (mode == kRR && rbits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  qdq_fused_kernel<<<nb, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)v, (const float*)levels, (const uint32_t*)rbits,
+      (const uint8_t*)mask, (const float*)lim, (float*)out, d, s, mode);
   return (int)cudaGetLastError();
 }
 

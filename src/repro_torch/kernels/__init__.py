@@ -2,7 +2,10 @@
 #
 #   ops.py            device dispatch (CPU -> plain version, CUDA -> kernel)
 #   ref.py            plain oracles (the reference's kernels/ref.py twins)
-#   fused_encode.py   encode_fused: clip -> round -> mask -> pack
+#   fused_encode.py   encode_fused: clip -> round -> mask -> pack;
+#                     qdq_fused: the same round stage, decoded in-register
+#   fused_decode.py   decode_fused_mean / decode_fused_each: unpack ->
+#                     level lookup [-> mean over workers]
 #   fused_kv.py       decode_attend (fused dequant-attention), append_kv
 #   build.py          nvcc build into build/repro_torch/ + ctypes binding
 #

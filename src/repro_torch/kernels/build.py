@@ -34,6 +34,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     # bit-exact rounding: no FMA contraction, IEEE division (no fast math)
     "encode_fused": ("encode_fused.cu", ("-fmad=false",)),
     "decode_attend": ("decode_attend.cu", ()),
+    "decode_fused": ("decode_fused.cu", ("-fmad=false",)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

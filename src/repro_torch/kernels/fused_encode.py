@@ -1,10 +1,13 @@
-"""Fused one-pass ENCODE: clip -> interval search -> round -> mask -> pack.
+"""Fused one-pass ENCODE: clip -> interval search -> round -> mask -> pack,
+and QDQ: the same clip/round stage decoded in-register.
 
-Port of the reference's Pallas kernel ``kernels/fused_encode.py:
+Port of the reference's Pallas kernels ``kernels/fused_encode.py:
 encode_fused`` (``pl.pallas_call`` at line 255, body ``_encode_kernel``,
-``_clip_round``, ``_pack_words``). The CUDA kernel is
-``csrc/encode_fused.cu``; :func:`encode_fused_plain` is its plain PyTorch
-version, the same arithmetic term for term, so the two are bit-equal.
+``_clip_round``, ``_pack_words``) and ``qdq_fused`` (line 283, body
+``_qdq_kernel``, the error-feedback residual path). The CUDA kernels are
+in ``csrc/encode_fused.cu``; :func:`encode_fused_plain` and
+:func:`qdq_fused_plain` are their plain PyTorch versions, the same
+arithmetic term for term, so each pair is bit-equal.
 
 Rounding modes:
     "rr"    unbiased random rounding (Eq. 7) on precomputed threefry
@@ -104,6 +107,17 @@ def _check(v, levels, rbits, mask, lim, bits, mode):
         raise ValueError("lim must be (nb, 1)")
 
 
+def _indices(v, levels, rbits, mask, lim, bits, mode):
+    """The shared clip/round/mask stage of both plain versions -> ((nb, d)
+    int64 level indices, f32 levels)."""
+    _check(v, levels, rbits, mask, lim, bits, mode)
+    u = uniform_from_bits(rbits) if mode == "rr" else None
+    lv = levels.to(torch.float32)
+    lim32 = None if lim is None else lim.to(torch.float32)
+    return _clip_round(levels.shape[1], mode, v.to(torch.float32), lv, mask,
+                       u, lim32), lv
+
+
 def encode_fused_plain(v: torch.Tensor, levels: torch.Tensor,
                        rbits: Optional[torch.Tensor],
                        mask: Optional[torch.Tensor],
@@ -113,23 +127,46 @@ def encode_fused_plain(v: torch.Tensor, levels: torch.Tensor,
     levels [+ (nb, d) bits] [+ (nb, d) bool mask] [+ (nb, 1) limit] ->
     (nb, ceil(d / (32 // bits))) int32 words. ``mask=None`` means every
     slot is valid."""
-    _check(v, levels, rbits, mask, lim, bits, mode)
-    u = uniform_from_bits(rbits) if mode == "rr" else None
-    lv = levels.to(torch.float32)
-    lim32 = None if lim is None else lim.to(torch.float32)
-    idx = _clip_round(levels.shape[1], mode, v.to(torch.float32), lv, mask,
-                      u, lim32)
+    idx, _ = _indices(v, levels, rbits, mask, lim, bits, mode)
     return encode.pack(idx, bits)
+
+
+def qdq_fused_plain(v: torch.Tensor, levels: torch.Tensor,
+                    rbits: Optional[torch.Tensor],
+                    mask: Optional[torch.Tensor],
+                    lim: Optional[torch.Tensor], *,
+                    mode: str = "rr") -> torch.Tensor:
+    """Plain PyTorch version of the qdq kernel: the inputs of
+    :func:`encode_fused_plain` -> (nb, d) f32, each slot the level its
+    index names (a masked slot decodes to level 0)."""
+    idx, lv = _indices(v, levels, rbits, mask, lim,
+                       encode.bits_for_levels(levels.shape[1]), mode)
+    return torch.gather(lv, 1, idx)
 
 
 _MODE_CODES = {"rr": 0, "bin": 1, "sign": 2}
 #: repro_encode_fused(v, levels, rbits, mask, lim, out, nb, d, s, bits,
 #:                    mode, stream)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: repro_qdq_fused(v, levels, rbits, mask, lim, out, nb, d, s, mode, stream)
+_QDQ_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _check_cuda(kernel, v, levels, rbits, mask, lim):
+    build.check_cuda(kernel, v=v, levels=levels, rbits=rbits, mask=mask,
+                     lim=lim)
+    for name, t, dts in (("v", v, (torch.float32,)),
+                         ("levels", levels, (torch.float32,)),
+                         ("lim", lim, (torch.float32,)),
+                         ("rbits", rbits, (torch.int32, torch.uint32))):
+        if t is not None and t.dtype not in dts:
+            raise TypeError(f"{kernel}: {name} must be {dts}, "
+                            f"got {t.dtype}")
 
 
 def encode_fused_cuda(v: torch.Tensor, levels: torch.Tensor,
@@ -142,15 +179,7 @@ def encode_fused_cuda(v: torch.Tensor, levels: torch.Tensor,
     and be contiguous: v/levels/lim float32, rbits int32 or uint32, mask
     bool."""
     _check(v, levels, rbits, mask, lim, bits, mode)
-    build.check_cuda("encode_fused", v=v, levels=levels, rbits=rbits,
-                     mask=mask, lim=lim)
-    for name, t, dts in (("v", v, (torch.float32,)),
-                         ("levels", levels, (torch.float32,)),
-                         ("lim", lim, (torch.float32,)),
-                         ("rbits", rbits, (torch.int32, torch.uint32))):
-        if t is not None and t.dtype not in dts:
-            raise TypeError(f"encode_fused: {name} must be {dts}, "
-                            f"got {t.dtype}")
+    _check_cuda("encode_fused", v, levels, rbits, mask, lim)
     nb, d = v.shape
     nw = encode.packed_words(d, bits)
     out = torch.empty((nb, nw), dtype=torch.int32, device=v.device)
@@ -166,3 +195,30 @@ def encode_fused_cuda(v: torch.Tensor, levels: torch.Tensor,
 
 
 encode_fused_cuda.launches = 0
+
+
+def qdq_fused_cuda(v: torch.Tensor, levels: torch.Tensor,
+                   rbits: Optional[torch.Tensor],
+                   mask: Optional[torch.Tensor],
+                   lim: Optional[torch.Tensor], *,
+                   mode: str = "rr") -> torch.Tensor:
+    """Launch the qdq kernel of ``csrc/encode_fused.cu`` on the current
+    stream; same contract as :func:`qdq_fused_plain` and the same input
+    types as :func:`encode_fused_cuda`."""
+    s = levels.shape[1]
+    _check(v, levels, rbits, mask, lim, encode.bits_for_levels(s), mode)
+    _check_cuda("qdq_fused", v, levels, rbits, mask, lim)
+    nb, d = v.shape
+    out = torch.empty((nb, d), dtype=torch.float32, device=v.device)
+    if nb:
+        launch = build.function("encode_fused", "repro_qdq_fused",
+                                _QDQ_ARGTYPES)
+        launch(v.data_ptr(), levels.data_ptr(),
+               _ptr(rbits if mode == "rr" else None), _ptr(mask), _ptr(lim),
+               out.data_ptr(), nb, d, s, _MODE_CODES[mode],
+               torch.cuda.current_stream().cuda_stream)
+        qdq_fused_cuda.launches += 1
+    return out
+
+
+qdq_fused_cuda.launches = 0

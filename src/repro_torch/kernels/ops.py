@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import fused_decode as _fdec
 from repro_torch.kernels import fused_encode as _fenc
 from repro_torch.kernels import fused_kv as _fkv
 
@@ -27,6 +28,31 @@ def encode_fused(v, levels, rbits, mask, *, bits: int,
     lim = _fenc.clip_limit(v, mask, clip_c)
     fn = _fenc.encode_fused_cuda if _on_cuda(v) else _fenc.encode_fused_plain
     return fn(v, levels, rbits, mask, lim, bits=bits, mode=mode)
+
+
+def qdq_fused(v, levels, rbits, mask, *, clip_c: Optional[float] = None,
+              mode: str = "rr"):
+    """σ-clip + round + mask + in-register decode: (nb, d) values -> (nb, d)
+    dequantized f32 (the error-feedback residual path)."""
+    lim = _fenc.clip_limit(v, mask, clip_c)
+    fn = _fenc.qdq_fused_cuda if _on_cuda(v) else _fenc.qdq_fused_plain
+    return fn(v, levels, rbits, mask, lim, mode=mode)
+
+
+def decode_fused_mean(words, levels, d: int, *, bits: int):
+    """Unpack + dequantize + average L workers' payloads: (L, nb, nw) +
+    (L, nb, s) -> (nb, d) f32 mean."""
+    fn = (_fdec.decode_fused_mean_cuda if _on_cuda(words)
+          else _fdec.decode_fused_mean_plain)
+    return fn(words, levels, d=d, bits=bits)
+
+
+def decode_fused_each(words, levels, d: int, *, bits: int):
+    """Unpack + dequantize, no averaging: (L, nb, nw) + (L, nb, s) ->
+    (L, nb, d) f32."""
+    fn = (_fdec.decode_fused_each_cuda if _on_cuda(words)
+          else _fdec.decode_fused_each_plain)
+    return fn(words, levels, d=d, bits=bits)
 
 
 def decode_attend(q, kw, klv, vw, vlv, mask, *, bits: int, kv_heads: int,

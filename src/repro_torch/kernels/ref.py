@@ -1,11 +1,21 @@
-"""Plain PyTorch oracles: the slice's part of the reference's
+"""Plain PyTorch oracles: the ported part of the reference's
 ``kernels/ref.py``.
 
-``encode_fused_ref`` is the multi-pass composition (σ-clip, count-and-gather
-random round, mask, pack as separate sweeps) that the one-pass kernel is
-held bit-identical against. ``kv_attend_block`` is THE definition of the
-serving engine's dequant-attention math; ``fused_kv.decode_attend_plain``
-is this function, and the CUDA kernel is held float-close to it.
+``encode_fused_ref`` / ``qdq_fused_ref`` are the multi-pass compositions
+(σ-clip, count-and-gather random round, mask, pack or decode as separate
+sweeps) that the one-pass kernels are held bit-identical against.
+``decode_fused_mean_ref`` / ``decode_fused_each_ref`` unpack and look the
+levels up; the mean accumulates ``out = fma(val, f32(1/L), out)`` worker
+by worker, l = 0..L-1: the Pallas kernel's ``out += val * (1.0 / L)``
+(``fused_decode.py:50-58``) in its order, with the multiply and the add
+rounded once, as XLA contracts them when the reference runs. So the port
+is exact for every L. (The reference's own jnp oracle sums, then scales,
+and agrees with its kernel only when L is a power of two:
+``wire.py:25-29``; for such L, and for L = 1, fma and a separate
+multiply and add agree, since the product is exact.)
+``kv_attend_block`` is THE definition of the serving engine's
+dequant-attention math; ``fused_kv.decode_attend_plain`` is this
+function, and the CUDA kernel is held float-close to it.
 """
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import clipping, encode
+from repro_torch.core.floats import fma_f32
 from repro_torch.core.rounding import uniform_from_bits
 
 NEG_INF = -2.0e38
@@ -63,6 +74,51 @@ def encode_fused_ref(v: torch.Tensor, levels: torch.Tensor,
     return encode.pack(_round_ref(v, levels, rbits, mask, clip_c, mode), bits)
 
 
+def qdq_fused_ref(v: torch.Tensor, levels: torch.Tensor,
+                  rbits: Optional[torch.Tensor], mask: torch.Tensor, *,
+                  clip_c: Optional[float] = None,
+                  mode: str = "rr") -> torch.Tensor:
+    """Oracle for ``fused_encode.qdq_fused``: (nb, d) f32 values, masked
+    slots decoded to level 0."""
+    idx = _round_ref(v, levels, rbits, mask, clip_c, mode)
+    return torch.gather(levels.to(torch.float32), 1, idx)
+
+
+def level_lookup(idx: torch.Tensor, lv: torch.Tensor) -> torch.Tensor:
+    """(..., d) int64 indices + (..., s) levels -> (..., d) f32 values; an
+    index >= s decodes to 0, as the reference's one-hot decode does."""
+    s = lv.shape[-1]
+    val = torch.gather(lv.to(torch.float32), -1, torch.clamp(idx, max=s - 1))
+    return torch.where(idx < s, val, 0.0)
+
+
+def _unpack_stack(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
+    """(L, nb, nw) int32 words -> (L, nb, d) int64 indices."""
+    L, nb, nw = words.shape
+    return encode.unpack(words.reshape(L * nb, nw), bits, d).reshape(L, nb, d)
+
+
+def decode_fused_mean_ref(words: torch.Tensor, levels: torch.Tensor, *,
+                          d: int, bits: int) -> torch.Tensor:
+    """(L, nb, nw) words + (L, nb, s) levels -> (nb, d) f32 mean,
+    accumulated as ``out = fma(val, f32(1/L), out)`` for l = 0..L-1."""
+    L = words.shape[0]
+    vals = level_lookup(_unpack_stack(words, bits, d), levels)
+    inv = torch.full(vals.shape[1:], 1.0 / L, dtype=torch.float32,
+                     device=words.device)
+    out = torch.zeros(vals.shape[1:], dtype=torch.float32,
+                      device=words.device)
+    for l in range(L):
+        out = fma_f32(vals[l], inv, out)
+    return out
+
+
+def decode_fused_each_ref(words: torch.Tensor, levels: torch.Tensor, *,
+                          d: int, bits: int) -> torch.Tensor:
+    """(L, nb, nw) words + (L, nb, s) levels -> (L, nb, d) f32 values."""
+    return level_lookup(_unpack_stack(words, bits, d), levels)
+
+
 # ---------------------------------------------------------------------------
 # quantized-KV serving oracles (kernels/fused_kv.py)
 # ---------------------------------------------------------------------------
@@ -74,10 +130,7 @@ def _kv_decode(w: torch.Tensor, lv: torch.Tensor, bits: int, s: int,
     >= s decodes to 0, as the reference's one-hot decode does)."""
     lead = w.shape[:-1]
     idx = encode.unpack(w.reshape(-1, w.shape[-1]), bits, d)
-    idx = idx.reshape(*lead, d)
-    lvf = lv.to(torch.float32)
-    val = torch.gather(lvf, -1, torch.clamp(idx, max=s - 1))
-    return torch.where(idx < s, val, 0.0)
+    return level_lookup(idx.reshape(*lead, d), lv[..., :s])
 
 
 def kv_attend_block(q: torch.Tensor, kw: torch.Tensor, klv: torch.Tensor,

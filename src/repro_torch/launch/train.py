@@ -1,0 +1,230 @@
+"""Training launcher: Algorithm-2 data-parallel training (the reference's
+``launch/train.py``, replicated mode).
+
+    python -m repro_torch.launch.train --arch lm-100m --steps 100 \\
+        --quant orq-9 --batch 8 --seq 128 [--error-feedback]
+
+    # several workers, one card each (torchrun sets RANK / WORLD_SIZE /
+    # MASTER_ADDR / MASTER_PORT; NCCL on the cards):
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --quant orq-9
+
+Without ``torchrun`` the launcher starts a world of one through a
+``file://`` store in a temporary directory: NCCL on the card, gloo with
+``--device cpu`` (which runs the kernels' plain versions). Weights are
+random, drawn from ``torch.Generator(seed)``; the tokens are the
+reference's ``SyntheticLM`` stream, bit for bit, each worker taking its
+rows of the global batch. A sha256 digest of the final parameters is
+printed (``params sha256 ...``) and written to ``--metrics-out``.
+
+fsdp mode, the two-level / async hierarchies, bit schedules, pipelined
+and per-leaf exchanges, pods, and checkpoints are not ported yet
+(ROADMAP.md); their flags exit with a message.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import get_config, get_smoke_config, list_archs
+from repro_torch.core import prng
+from repro_torch.core.api import all_methods
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.data import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models import LM
+from repro_torch.optim.schedule import step_decay
+from repro_torch.train import TrainConfig, init_state, make_train_step
+from repro_torch.utils.pytree import tree_leaves
+
+_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+def params_digest(params) -> str:
+    """sha256 over the raw bytes of every parameter leaf, in the
+    reference's canonical order: a bit-level run fingerprint."""
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="lm-100m", choices=list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch (rows are split over the workers)")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument(
+        "--quant", default="fp", metavar="SCHEME|POLICY",
+        help="quantization scheme or per-parameter-group policy string "
+             "('pattern=scheme[,...][,default=scheme]'). The port fits "
+             f"levels for fp and orq-*; registered schemes: "
+             f"{', '.join(all_methods())}")
+    ap.add_argument("--bucket", type=int, default=2048)
+    ap.add_argument("--clip-c", type=float, default=None)
+    ap.add_argument("--mode", default="replicated",
+                    choices=["replicated", "fsdp"])
+    ap.add_argument("--hierarchy", default="auto",
+                    choices=["flat", "auto", "two_level", "two_level_async"])
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="accumulate error-feedback residuals")
+    ap.add_argument("--exchange-chunk", type=int, default=None,
+                    help="cap fused-collective size (elements) for memory")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain versions)")
+    # reference flags whose paths are not ported yet
+    ap.add_argument("--bit-schedule", default=None)
+    ap.add_argument("--pipeline-chunks", type=int, default=1)
+    ap.add_argument("--per-leaf-exchange", action="store_true")
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--state-checkpoint", default=None)
+    ap.add_argument("--checkpoint-at", type=int, default=None)
+    return ap
+
+
+def _refuse_unported(ap, args) -> None:
+    checks = [
+        (args.mode == "fsdp", "--mode fsdp"),
+        (args.hierarchy not in ("flat", "auto"),
+         f"--hierarchy {args.hierarchy}"),
+        (args.bit_schedule is not None, "--bit-schedule"),
+        (args.pipeline_chunks != 1, "--pipeline-chunks > 1"),
+        (args.per_leaf_exchange, "--per-leaf-exchange"),
+        (args.pods != 1, "--pods"),
+        (args.resume is not None, "--resume"),
+        (args.checkpoint is not None or args.state_checkpoint is not None
+         or args.checkpoint_at is not None, "checkpointing"),
+    ]
+    for bad, what in checks:
+        if bad:
+            ap.error(f"{what} {_NOT_PORTED}")
+
+
+def _init_world(device):
+    """(device, rank, world size, created): join the torchrun world, or
+    start a world of one on a ``file://`` store in a temporary directory."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if dist.is_initialized():
+        return device, dist.get_rank(), dist.get_world_size(), None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, ws = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="env://", rank=rank, world_size=ws)
+        return device, rank, ws, ""
+    tmp = tempfile.mkdtemp(prefix="repro_torch_world_")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    return device, 0, 1, tmp
+
+
+def train(argv=None) -> dict:
+    """Run the launcher; returns the run's record (history, per-step
+    seconds, digest, wire accounting, final state)."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _refuse_unported(ap, args)
+    try:
+        policy = QuantPolicy.parse(args.quant, bucket_size=args.bucket,
+                                   clip_c=args.clip_c)
+        tcfg = TrainConfig(policy=policy, error_feedback=args.error_feedback,
+                           exchange_chunk_elems=args.exchange_chunk)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    model = LM(cfg)
+    try:
+        step_fn = make_train_step(
+            model, tcfg, step_decay(args.lr, [args.steps // 2,
+                                              3 * args.steps // 4]))
+    except NotImplementedError as e:
+        ap.error(str(e))
+    device, rank, ws, created = _init_world(resolve_device(args.device))
+    try:
+        if args.batch % ws:
+            ap.error(f"--batch {args.batch} does not split over {ws} "
+                     f"workers")
+        state = init_state(model, tcfg, seed=args.seed, device=device)
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                           batch_size=args.batch, seed=args.seed)
+        key = prng.key(args.seed, device=device)
+        rows = slice(rank * args.batch // ws, (rank + 1) * args.batch // ws)
+        history, step_s = [], []
+        t0 = time.perf_counter()
+        for i in range(args.steps):
+            tokens = data.batch(i, device=device)["tokens"][rows]
+            ts = time.perf_counter()
+            state, metrics = step_fn(state, {"tokens": tokens}, key)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - ts)
+            if i % args.log_every == 0 or i == args.steps - 1:
+                row = {"step": i, "loss": float(metrics["loss"]),
+                       "nll": float(metrics["nll"]),
+                       "lr": float(metrics["lr"])}
+                history.append(row)
+                if rank == 0:
+                    print(f"step {i:5d} loss {row['loss']:.4f} "
+                          f"({(time.perf_counter() - t0) / (i + 1):.2f}"
+                          f"s/step)", flush=True)
+        digest = params_digest(state.params)
+        # Algorithm 2 keeps the replicas identical: check it across ranks
+        mine = torch.tensor(list(bytes.fromhex(digest)), device=device)
+        every = [torch.empty_like(mine) for _ in range(ws)]
+        dist.all_gather(every, mine)
+        in_sync = all(torch.equal(d, mine) for d in every)
+        pex = step_fn.exchange
+        out = {"history": history, "params_sha256": digest,
+               "step_s": step_s, "world_size": ws, "rank": rank,
+               "n_params": pex.layout.size,
+               "wire_bytes_per_worker": pex.wire_bytes_per_worker(ws),
+               "collective_launches_per_step": pex.collective_launches(),
+               "replicas_in_sync": in_sync, "device": str(device),
+               "state": state}
+        if rank == 0:
+            print("params sha256", digest, flush=True)
+            print(f"replicas in sync: {in_sync} ({ws} workers)", flush=True)
+            if args.metrics_out:
+                with open(args.metrics_out, "w") as f:
+                    json.dump({k: v for k, v in out.items() if k != "state"},
+                              f, indent=1)
+        return out
+    finally:
+        if created is not None:
+            dist.destroy_process_group()
+            if created:
+                shutil.rmtree(created, ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    train(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,27 +1,33 @@
-"""Attention pieces the serving engine calls (the reference's
-``models/attention.py``): the spec, its scale, and the cache attention
-with a full per-query mask, used by the bf16 escape hatch."""
+"""Attention (the reference's ``models/attention.py``): the spec, its
+scale, the chunked online-softmax attention of the training forward, and
+the cache attention with a full per-query mask, used by the serving
+engine's bf16 escape hatch. Plain PyTorch: the reference computes all of
+it outside any Pallas kernel."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import softcap
+from repro_torch.models.layers import apply_rope, softcap
 
 NEG_INF = -2.0e38
 
 
 class AttnSpec(NamedTuple):
-    """The fields of the reference's ``AttnSpec`` that cache attention
-    reads (its chunking, windowing, scale-override and partial-rope fields
-    come with the training and dense paths)."""
+    """The fields of the reference's ``AttnSpec`` that the ported paths
+    read (its scale-override and partial-rope fields belong to MLA and
+    the encoder, which are not ported)."""
 
     num_heads: int
     num_kv_heads: int
     head_dim: int
     attn_softcap: float = 0.0
     rope_theta: float = 1e4
+    causal: bool = True
+    window: Optional[int] = None     # None = full; int = sliding window
+    q_chunk: int = 512
+    kv_chunk: int = 512
 
 
 def _scale(spec: AttnSpec) -> float:
@@ -49,6 +55,54 @@ def _chunk_out(p, v, B, H, qc):
     pk = p.reshape(B, kv, g, qc, v.shape[1])
     o = torch.einsum("bkgqc,bckh->bqkgh", pk, v.to(torch.float32))
     return o.reshape(B, qc, H, -1)
+
+
+def chunked_attention(q, k, v, spec: AttnSpec):
+    """Training attention: q (B,S,H,hd), k/v (B,S,KV,hd), rope not yet
+    applied -> (B,S,H,hd) in q's type. The reference's flash-style loop:
+    query chunks outside, key/value chunks inside with a running (max,
+    sum, acc) in float32, so no (S, S) score matrix exists. Rope rotates
+    each position independently, so it is applied to the whole q and k
+    once instead of per chunk."""
+    if spec.window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not ported to repro_torch yet "
+            "(see ROADMAP.md)")
+    B, S, H, hd = q.shape
+    pos = torch.arange(S, device=q.device)
+    q = apply_rope(q, pos, spec.rope_theta)
+    k = apply_rope(k, pos, spec.rope_theta)
+    qc, kc = min(spec.q_chunk, S), min(spec.kv_chunk, S)
+    outs = []
+    for q0 in range(0, S, qc):
+        qb = q[:, q0:q0 + qc]
+        n = qb.shape[1]
+        m = torch.full((B, H, n), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, n), dtype=torch.float32, device=q.device)
+        o = torch.zeros((B, H, n, hd), dtype=torch.float32, device=q.device)
+        for k0 in range(0, S, kc):
+            if spec.causal and k0 > q0 + n - 1:
+                break                        # every score masked: no-op
+            kb, vb = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
+            s = _chunk_scores(qb, kb, spec)              # (B,H,n,kc)
+            if spec.causal:
+                mask = pos[q0:q0 + n, None] >= pos[None, k0:k0 + kc]
+            else:
+                mask = torch.ones((n, kb.shape[1]), dtype=torch.bool,
+                                  device=q.device)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+            l = l * corr + p.sum(dim=-1)
+            o = (o * corr[..., None]
+                 + _chunk_out(p, vb, B, H, n).transpose(1, 2))
+            m = m_new
+        out = o / torch.clamp(l, min=1e-30)[..., None]   # (B,H,n,hd)
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def masked_decode_attention(q, k_cache, v_cache, mask, spec: AttnSpec):

@@ -1,5 +1,6 @@
-"""Per-layer parameters and the pieces of a dense GQA attention layer that
-the serving engine applies (the reference's ``models/blocks.py``)."""
+"""Per-layer parameters and the dense GQA attention layer: the pieces the
+serving engine applies and the training forward ``apply_layer_train``
+(the reference's ``models/blocks.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +8,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import AttnSpec
+from repro_torch.models.attention import AttnSpec, chunked_attention
 from repro_torch.models.layers import dense_init, gated_mlp, rms_norm
 
 
@@ -30,6 +31,10 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
         head_dim=cfg.resolved_head_dim,
         attn_softcap=cfg.attn_softcap,
         rope_theta=theta,
+        causal=spec.causal,
+        window=cfg.window if local else None,
+        q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk,
     )
 
 
@@ -95,3 +100,18 @@ def _gqa_project(cfg: ModelConfig, p, x):
 def _ffn_train(cfg: ModelConfig, spec: LayerSpec, p, x):
     """Dense gated MLP. Returns (y, aux) like the reference."""
     return gated_mlp(p, x, act=cfg.mlp_act), 0.0
+
+
+def _attn_block_train(cfg: ModelConfig, spec: LayerSpec, p, x):
+    q, k, v = _gqa_project(cfg, p["attn"], x)
+    o = chunked_attention(q, k, v, attn_spec(cfg, spec))
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["attn"]["wo"]
+
+
+def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
+    """x (B,S,D) -> (x', aux_loss): pre-norm attention, then the FFN."""
+    check_dense_gqa(cfg, spec)
+    h = x + _attn_block_train(cfg, spec, p, _apply_norm(cfg, p["norm1"], x))
+    y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
+    return h + y, aux

@@ -9,7 +9,7 @@ the elementwise ops.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -67,11 +67,17 @@ def gated_mlp(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
 # init helpers (the port's own init; weights from a torch.Generator)
 # ---------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape: Sequence[int],
+def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
                in_axis: int = 0) -> torch.Tensor:
+    """``gen=None`` gives a ``meta`` tensor: the shape, no values."""
+    if gen is None:
+        return torch.empty(tuple(shape), device="meta")
     fan_in = shape[in_axis]
     return torch.randn(tuple(shape), generator=gen) / math.sqrt(fan_in)
 
 
-def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+def embed_init(gen: Optional[torch.Generator],
+               shape: Sequence[int]) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(tuple(shape), device="meta")
     return torch.randn(tuple(shape), generator=gen) * 0.02

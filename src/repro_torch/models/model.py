@@ -1,24 +1,34 @@
-"""LM: the decoder-only model over LayerSpecs, the parts the serving engine
-calls (the reference's ``models/model.py``).
+"""LM: the decoder-only model over LayerSpecs (the reference's
+``models/model.py``): the training forward (``hidden_states``,
+``logits``, the chunked ``loss``) and the parts the serving engine calls.
 
 Layers are grouped into repeating units; each group's parameters are
 stacked on a leading ``(repeats, ...)`` axis, exactly the reference's
 params tree, so carrying weights across is a tree map
 (``repro_torch.convert.params_from_jax``). The port's own ``init`` draws
 from a ``torch.Generator`` (numbers differ from ``jax.random``'s).
+
+Mixed precision is the reference's: f32 master weights, every leaf cast
+to bf16 at its point of use, norms/rope/softmax/logsumexp in f32. The
+backward is autograd through these plain ops (the reference's
+``jax.value_and_grad``; no Pallas kernel is on this path). The
+reference's ``cfg.remat`` (rematerialise each layer group in the
+backward) changes no value, and the port ignores it: at the ported
+sizes the activations fit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import LayerSpec, init_layer
-from repro_torch.models.layers import dense_init, embed_init, rms_norm
+from repro_torch.models.blocks import LayerSpec, apply_layer_train, init_layer
+from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+                                       softcap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +98,15 @@ class LM:
         device), then moved to ``device``: the card unless the caller
         passes ``device="cpu"``."""
         device = resolve_device(device)
+        return map_tree(lambda t: t.to(device), self._build(gen))
+
+    def abstract_params(self) -> dict:
+        """The params tree with shapes and dtypes but no values (the large
+        leaves are ``meta`` tensors): layouts and byte accounting at full
+        size."""
+        return self._build(None)
+
+    def _build(self, gen: Optional[torch.Generator]) -> dict:
         cfg = self.cfg
         params = {
             "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)),
@@ -101,7 +120,25 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model,
                                                  cfg.vocab_size))
-        return map_tree(lambda t: t.to(device), params)
+        return params
+
+    def param_paths(self, params) -> dict:
+        """Tree of path strings aligned with ``params``: the reference's
+        gather paths (``"embed"``, ``"g0/pos0['attn']['wq']"``, ...), which
+        policies are resolved against."""
+        def named(prefix, tree):
+            if isinstance(tree, dict):
+                return {k: named(f"{prefix}[{k!r}]", v)
+                        for k, v in tree.items()}
+            return prefix
+
+        out = {"embed": "embed",
+               "final_norm": named("final_norm", params["final_norm"]),
+               "groups": tuple({k: named(f"g{gi}/{k}", gp[k]) for k in gp}
+                               for gi, gp in enumerate(params["groups"]))}
+        if "lm_head" in params:
+            out["lm_head"] = "lm_head"
+        return out
 
     def _final_norm(self, p, x):
         return rms_norm(x, p, self.cfg.norm_eps)
@@ -118,3 +155,48 @@ class LM:
         if self.cfg.tie_embeddings:
             return self._cast(params["embed"]).T
         return self._cast(params["lm_head"])
+
+    # ------------------------------------------------------------------
+    # training forward
+    # ------------------------------------------------------------------
+    def hidden_states(self, params, tokens: torch.Tensor):
+        """tokens (B, S) -> (final-normed hidden states (B, S, D) bf16,
+        aux loss). Each group's stacked layers run in order."""
+        cfg = self.cfg
+        x = self._cast(params["embed"])[tokens.long()]
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g, gp in zip(self.groups, params["groups"]):
+            for r in range(g.repeats):
+                for j, spec in enumerate(g.unit):
+                    pj = map_tree(lambda t: self._cast(t[r]), gp[f"pos{j}"])
+                    x, a = apply_layer_train(cfg, spec, pj, x)
+                    aux = aux + a
+        return self._final_norm(self._cast(params["final_norm"]), x), aux
+
+    def logits(self, params, tokens: torch.Tensor):
+        x, aux = self.hidden_states(params, tokens)
+        lg = (x @ self._head(params)).to(torch.float32)
+        return softcap(lg, self.cfg.final_softcap), aux
+
+    def loss(self, params, batch, *, loss_chunk: int = 512):
+        """batch: {tokens (B, S)}. Next-token cross entropy, computed in
+        sequence chunks so (B, S, V) logits never exist at once. Returns
+        (loss, {"nll", "aux", "tokens"}) like the reference."""
+        tokens = batch["tokens"].long()
+        x, aux = self.hidden_states(params, tokens)
+        head = self._head(params)
+        inputs, targets = x[:, :-1], tokens[:, 1:]
+        T = inputs.shape[1]
+        ck = min(loss_chunk, T)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, T, ck):
+            lg = (inputs[:, c0:c0 + ck] @ head).to(torch.float32)
+            lg = softcap(lg, self.cfg.final_softcap)
+            tc = targets[:, c0:c0 + ck]
+            tgt = torch.gather(lg, -1, tc[..., None])[..., 0]
+            tot = tot + (torch.logsumexp(lg, dim=-1) - tgt).sum()
+        cnt = torch.tensor(float(targets.numel()), device=x.device)
+        loss = tot / torch.clamp(cnt, min=1.0)
+        return loss + aux, {"nll": loss, "aux": aux, "tokens": cnt}

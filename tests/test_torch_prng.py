@@ -106,3 +106,48 @@ def test_token_rbits_bit_equal(rep, flavor):
     assert got.dtype == torch.int32 and tuple(got.shape) == (8, d)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 7])
+def test_split_bit_equal(seed, num):
+    k = jax.random.fold_in(jax.random.key(seed), 3)
+    want = jax.random.key_data(jax.random.split(k, num))
+    got = prng.split(prng.fold_in(prng.key(seed), 3), num)
+    np.testing.assert_array_equal(got.numpy(), _u32(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((), 0, 64), ((8,), 0, 32768), ((3, 4), 0, 4), ((10,), -5, 70_000),
+    ((5,), 3, 3), ((6,), -2 ** 31, 2 ** 31 - 1)])
+def test_randint_bit_equal(seed, shape, lo, hi):
+    """jax's two-stream span multiply, its uint32 wrap included (spans
+    above 2**16 wrap the multiplier)."""
+    k = jax.random.key(seed)
+    want = jax.random.randint(k, shape, lo, hi)
+    got = prng.randint(prng.key(seed), shape, lo, hi)
+    assert tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(), (7,), (2, 3)])
+def test_uniform_bit_equal(seed, shape):
+    k = jax.random.key(seed)
+    np.testing.assert_array_equal(
+        prng.uniform(prng.key(seed), shape).numpy(),
+        np.asarray(jax.random.uniform(k, shape)))
+    np.testing.assert_array_equal(
+        prng.uniform(prng.key(seed), shape, -2.0, 3.0).numpy(),
+        np.asarray(jax.random.uniform(k, shape, minval=-2.0, maxval=3.0)))
+
+
+def test_batched_split_and_randint_equal_one_by_one():
+    keys = prng.split(prng.key(4), 5)                       # (5, 2)
+    got = prng.randint(prng.split(keys, 3)[:, 1], (2,), 0, 100)
+    jkeys = jax.random.split(jax.random.key(4), 5)
+    for i in range(5):
+        sub = jax.random.split(jkeys[i], 3)[1]
+        np.testing.assert_array_equal(
+            got[i].numpy(), np.asarray(jax.random.randint(sub, (2,), 0, 100)))
