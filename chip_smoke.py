@@ -10,8 +10,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 3. kernels  each kernel against its plain PyTorch version: ``encode_fused``
             at the serving path's shapes, ``decode_attend`` within ATOL;
             ``decode_fused_mean`` (L = 1, 3, 4), ``decode_fused_each`` and
-            ``qdq_fused`` (rr, bin, sign, clip) bit-equal by value. Times
-            per call of the kernel, the plain version and the library
+            ``qdq_fused`` (rr, bin, sign, clip) bit-equal by value;
+            ``encode_bingrad_fused`` and ``bingrad_pass`` at the KV shape
+            (16 rows of 768) and the training shape, bit-equal on
+            multiples of 1/64, elsewhere levels / sums within LEVEL_RTOL
+            and words the exact threshold of the kernel's own levels.
+            Times per call of the kernel, the plain version and the library
             yardstick: ``*ms`` from CUDA events around back-to-back calls
             (host work between launches included), ``*device_ms`` the
             kernels' own time from torch.profiler; beside the least time
@@ -22,26 +26,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
-            prompt tokens and 32 new tokens after a warm-up request. Both
-            kernels' launch counters are zeroed just before and must read
-            forward calls x layers just after.
+            prompt tokens and 32 new tokens after a warm-up request. Every
+            launch counter is zeroed just before; the KV encode and
+            ``decode_attend`` must read forward calls x layers just after,
+            every other kernel 0.
 5. check    the smoke-size engine on the card against the same engine on
             the CPU (the plain versions, which the CPU tests hold against
             the JAX reference): logits within ATOL_LOGITS.
 6. profile  device time by kernel and by category over four decode steps
             (torch.profiler), beside the same steps' wall time without
             the profiler; busy share = device time / unprofiled wall.
+   Phases 4-6 run again with BinGrad-b KV pages (``encode_bingrad_fused``,
+   208 bytes per token-layer); the check also holds the first layer's
+   pages on the card (levels against the plain fit, words the threshold
+   of the kernel's levels) and the logits within ATOL_LOGITS_BIN.
 7. train    the training path: ``repro_torch.launch.train`` on full-width
             lm-100m (f32 weights from seed 0), orq-9, bucket 2048, batch
             8, seq 128, a world of one on NCCL (``file://`` store): 3
-            steps, then 2 with error feedback. The four training kernels'
-            counters are zeroed just before and must read encode 10,
-            mean 5, each 5, qdq 2 just after; losses finite; wire bytes
-            per worker 140,042,960. Then device time by category over
-            two steps (torch.profiler), beside their unprofiled wall.
+            steps, then 2 with error feedback. The counters are zeroed
+            just before and must read encode 10, mean 5, each 5, qdq 2
+            just after; losses finite; wire bytes per worker 140,042,960;
+            replicas in sync. Then device time by category over two steps
+            (torch.profiler), beside their unprofiled wall. Then BinGrad-b
+            the same way (encode_bingrad_fused 12, mean 5, each 5, qdq 2;
+            34,878,624 wire bytes), and one step of each other scheme
+            (bingrad-pb, terngrad, qsgd-5, linear-5, minmax2, signsgd;
+            encode 2, mean 1, each 1; the reference's wire bytes).
 8. exchange the smoke-size fused exchange of a buffer of multiples of 1/64
-            (every ORQ prefix sum exact in any order) on the card and on
-            the CPU (gloo): outputs and EF residuals bit-equal.
+            (every fit's sums exact in any order) on the card and on the
+            CPU (gloo), for every scheme: outputs and EF residuals
+            bit-equal.
 
 Then the kernels JSON line, the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -65,6 +79,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 ATOL_ATTEND = 1e-5             # online softmax reorders the f32 sums
 ATOL_LOGITS = 0.25             # bf16 matmuls + 4-bit rounding flips
+ATOL_LOGITS_BIN = 1.0          # bf16 matmuls + 1-bit threshold flips
 
 
 def emit(phase: str, **kw) -> None:
@@ -134,7 +149,7 @@ def device_ms(fn, calls: int = 10) -> float:
 def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
     for k in ("decode_attend", "encode_fused", "qdq_fused", "decode_mean",
-              "decode_each"):
+              "decode_each", "encode_bingrad", "bingrad_pass"):
         if k in n:
             return k
     if "nccl" in n:
@@ -488,6 +503,149 @@ def check_qdq(torch, dev):
     return res
 
 
+LEVEL_RTOL = 1e-5     # BinGrad-b levels: row sums in another order
+# A Lloyd iteration re-splits the row at b0 = (b-1 + b1) / 2; when the two
+# b0 differ by an ulp and a value lies between them, that value changes
+# sides and the means move by ~|v| / count: such rows (at most
+# FLIP_SHARE of them) are held within FLIP_RTOL of the row's max |v|.
+FLIP_SHARE = 1e-3
+FLIP_RTOL = 1e-2
+
+
+def _bin_inputs(torch, dev, g, nb, d, dist, masked):
+    """(values, mask) on the card: ``q64`` multiples of 1/64 in [-1, 1]
+    (every partial sum exact in float32 in any order) or gradient-like
+    normal values; the training shape masks its ragged tail as the
+    exchange does."""
+    if dist == "q64":
+        v = torch.randint(-64, 65, (nb, d), generator=g).float() / 64
+    else:
+        v = torch.randn((nb, d), generator=g) * (1e-3 if masked else 0.3)
+    v = v.to(dev)
+    mask = None
+    if masked:
+        mask = (torch.arange(nb * d, device=dev) < 135_285_504
+                ).reshape(nb, d)
+        v = torch.where(mask, v, 0.0)
+    return v, mask
+
+
+def check_bingrad(torch, dev):
+    """encode_bingrad_fused and bingrad_pass against their plain versions
+    on the card, at the serving path's KV shape (16 rows of 768, no mask)
+    and at the training path's shape (66,058 masked buckets of 2048).
+    Exact cases (q64): levels, words, sums and counts bit-equal.
+    Float-close cases: levels within LEVEL_RTOL of the row's max |v|, the
+    words exactly the threshold of the kernel's own levels, and the word
+    bits that differ from the plain version's counted."""
+    from repro_torch.kernels import bingrad as bg
+    from repro_torch.kernels import fused_bingrad as fb
+    from repro_torch.kernels import fused_encode as fe
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    cases = {  # name -> (nb, d, dist, masked, lloyd_iters, clip_c)
+        "kv_rows16": (16, 768, "normal", False, 0, None),
+        "kv_rows16_q64": (16, 768, "q64", False, 0, None),
+        "train_q64_lloyd0": (TRAIN_NB, TRAIN_D, "q64", True, 0, None),
+        "train_q64_lloyd2": (TRAIN_NB, TRAIN_D, "q64", True, 2, None),
+        "train_main_shape": (TRAIN_NB, TRAIN_D, "normal", True, 0, None),
+        "train_lloyd2_clip2.5": (TRAIN_NB, TRAIN_D, "normal", True, 2, 2.5),
+    }
+    results = {}
+    for name, (nb, d, dist, masked, li, clip_c) in cases.items():
+        v, mask = _bin_inputs(torch, dev, g, nb, d, dist, masked)
+        lim = fe.clip_limit(v, mask, clip_c)
+        kern = lambda: fb.encode_bingrad_fused_cuda(v, mask, lim,
+                                                    lloyd_iters=li)
+        plain = lambda: fb.encode_bingrad_fused_plain(v, mask, lim,
+                                                      lloyd_iters=li)
+        words, lv = kern()
+        want_w, want_l = plain()
+        torch.cuda.synchronize()
+        exact = dist == "q64" and clip_c is None
+        diff = (lv - want_l).abs()
+        lv_err = float(diff.max())
+        vmax = float(v.abs().max())
+        tol = LEVEL_RTOL * vmax
+        far_rows = int((diff > tol).any(dim=1).sum())
+        own = fe.encode_fused_plain(v, lv, None, mask, lim, bits=1,
+                                    mode="bin")
+        words_vs_own = _mismatch(torch, words, own)
+        flips = int(((words ^ want_w) != 0).sum())
+        ok = (words_vs_own == 0 and far_rows <= FLIP_SHARE * nb
+              and lv_err <= FLIP_RTOL * vmax
+              and (not exact or (lv_err == 0.0 and flips == 0)))
+        reps = 20 if nb < 1000 else 10
+        ms, plain_ms = time_ms(kern, reps=reps, rounds=3), time_ms(
+            plain, reps=2, rounds=3)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
+        moved = nbytes(v, mask, lim, words, lv)
+        b_ms, b_by = bound(moved, float(nb * d * (3 + 3 * (1 + li))))
+        results[name] = dict(
+            shape=[nb, d], data=dist, mask=masked, lloyd_iters=li,
+            clip_c=clip_c, exact_case=exact, max_abs_err=lv_err,
+            level_tol=tol, level_entries_differ=int((lv != want_l).sum()),
+            level_rows_beyond_tol=far_rows,
+            words_vs_own_threshold=words_vs_own,
+            words_differ_from_plain=flips, ms=ms, plain_ms=plain_ms,
+            library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="encode_bingrad_fused", case=name,
+             **results[name])
+        if not ok:
+            raise AssertionError(f"encode_bingrad_fused {name}: "
+                                 f"{results[name]}")
+        # the encode's words through encode_fused(mode="bin") given its
+        # levels: the same words (cross-check of the two kernels)
+        again = fe.encode_fused_cuda(v, lv, None, mask, lim, bits=1,
+                                     mode="bin")
+        if _mismatch(torch, again, words):
+            raise AssertionError(f"encode_fused(bin) disagrees with "
+                                 f"encode_bingrad_fused on {name}")
+        del v, mask, lim, words, lv, want_w, want_l, own, again
+
+    pass_cases = {  # name -> (nb, d, dist, masked)
+        "kv_rows16": (16, 768, "normal", False),
+        "train_q64": (TRAIN_NB, TRAIN_D, "q64", True),
+        "train_main_shape": (TRAIN_NB, TRAIN_D, "normal", True),
+    }
+    for name, (nb, d, dist, masked) in pass_cases.items():
+        v, mask = _bin_inputs(torch, dev, g, nb, d, dist, masked)
+        if mask is None:
+            mask = torch.ones_like(v, dtype=torch.bool)
+        b0 = (v * mask).sum(dim=1, keepdim=True) / mask.sum(
+            dim=1, keepdim=True).clamp(min=1)
+        kern = lambda: bg.bingrad_pass_cuda(v, b0, mask)
+        plain = lambda: bg.bingrad_pass_plain(v, b0, mask)
+        idx, part = kern()
+        want_i, want_p = plain()
+        torch.cuda.synchronize()
+        idx_mism = _mismatch(torch, idx, want_i)
+        cnt_mism = _mismatch(torch, part[:, 1::2], want_p[:, 1::2])
+        err = float((part - want_p).abs().max())
+        tol = LEVEL_RTOL * float((v.abs() * mask).sum(dim=1).max())
+        exact = dist == "q64"
+        reps = 20 if nb < 1000 else 10
+        ms, plain_ms = time_ms(kern, reps=reps, rounds=3), time_ms(
+            plain, reps=2, rounds=3)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
+        moved = nbytes(v, b0, mask, idx, part)
+        b_ms, b_by = bound(moved, float(nb * d * 3))
+        results["pass/" + name] = dict(
+            shape=[nb, d], data=dist, mask=masked, exact_case=exact,
+            idx_mismatched=idx_mism, counts_mismatched=cnt_mism,
+            max_abs_err=err, sum_tol=tol, ms=ms, plain_ms=plain_ms,
+            library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="bingrad_pass", case=name,
+             **results["pass/" + name])
+        if idx_mism or cnt_mism or err > (0.0 if exact else tol):
+            raise AssertionError(f"bingrad_pass {name}: "
+                                 f"{results['pass/' + name]}")
+        del v, mask, b0, idx, part, want_i, want_p
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6
 # ---------------------------------------------------------------------------
@@ -495,38 +653,67 @@ def check_qdq(torch, dev):
 MAIN_ARGS = ["--arch", "lm-100m", "--kv-quant", "orq-9", "--batch", "8",
              "--prompt-len", "128", "--gen", "32", "--max-len", "512",
              "--prefill-chunk", "64", "--page-size", "16", "--seed", "0"]
+#: scheme -> (kernel that encodes its KV rows, token bytes, ratio to bf16)
+SERVE_SCHEMES = {"orq-9": ("encode_fused", 840, 0.2734),
+                 "bingrad-b": ("encode_bingrad_fused", 208, 0.0677)}
 
 
-def run_main_path(torch):
+def _counters():
+    """Every kernel's launch counter (the CUDA wrappers)."""
+    from repro_torch.kernels import (bingrad, fused_bingrad, fused_decode,
+                                     fused_encode, fused_kv)
+    return {"encode_fused": fused_encode.encode_fused_cuda,
+            "decode_attend": fused_kv.decode_attend_cuda,
+            "qdq_fused": fused_encode.qdq_fused_cuda,
+            "decode_fused_mean": fused_decode.decode_fused_mean_cuda,
+            "decode_fused_each": fused_decode.decode_fused_each_cuda,
+            "encode_bingrad_fused": fused_bingrad.encode_bingrad_fused_cuda,
+            "bingrad_pass": bingrad.bingrad_pass_cuda}
+
+
+def _zero_counters():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counters():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def run_main_path(torch, scheme="orq-9"):
+    """The serving launcher with ``scheme`` KV pages; every counter is
+    zeroed just before and read just after."""
     import numpy as np
 
-    from repro_torch.kernels import fused_encode, fused_kv
     from repro_torch.launch import serve as launcher
 
-    counters = {"encode_fused": fused_encode.encode_fused_cuda,
-                "decode_attend": fused_kv.decode_attend_cuda}
-    for fn in counters.values():
-        fn.launches = 0
+    args = list(MAIN_ARGS)
+    args[args.index("--kv-quant") + 1] = scheme
+    enc, tok_bytes, ratio = SERVE_SCHEMES[scheme]
+    _zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = launcher.serve(MAIN_ARGS)
+    r = launcher.serve(args)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counters()
     toks = r.pop("tokens")
     eng = r.pop("engine")
     expect = r["forward_calls"] * r["layers"]
+    want = {k: (expect if k in (enc, "decode_attend") else 0)
+            for k in launches}
     cache_expect = (r["layers"] * eng.cfg.resolved_num_pages
                     * eng.cfg.page_size * r["token_bytes"])
-    emit("serve", args=" ".join(MAIN_ARGS), wall_s=wall, launches=launches,
-         expected_launches=expect, cache_bytes_expected=cache_expect,
+    emit("serve", scheme=scheme, args=" ".join(args), wall_s=wall,
+         launches=launches, expected_launches=want,
+         cache_bytes_expected=cache_expect,
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          tokens_shape=list(toks.shape), **r)
-    for k, n in launches.items():
-        if n != expect:
-            raise AssertionError(f"{k} launched {n} times, expected "
-                                 f"{expect} (forward calls x layers)")
-    if r["token_bytes"] != 840 or round(r["token_bytes_ratio"], 4) != 0.2734:
-        raise AssertionError(f"orq-9 cache accounting off: {r}")
+    if launches != want:
+        raise AssertionError(f"{scheme} serve launches {launches} != {want} "
+                             f"(forward calls x layers)")
+    if (r["token_bytes"] != tok_bytes
+            or round(r["token_bytes_ratio"], 4) != ratio):
+        raise AssertionError(f"{scheme} cache accounting off: {r}")
     if r["cache_bytes"] != cache_expect:
         raise AssertionError("cache bytes disagree with the page count")
     if toks.shape != (8, 32) or not ((toks >= 0) & (toks < 32768)).all():
@@ -536,46 +723,97 @@ def run_main_path(torch):
     return launches, eng
 
 
-def check_against_cpu(torch, dev):
+def _first_layer_pages(torch, seen):
+    """BinGrad-b's first layer on the card: the KV rows the engine encoded
+    in its first forward, held against the plain version on the same rows
+    (levels within LEVEL_RTOL, words the exact threshold of the kernel's
+    levels), and against the CPU engine's rows and pages."""
+    from repro_torch.kernels import fused_bingrad as fb
+    from repro_torch.kernels import fused_encode as fe
+
+    rows = {d: torch.cat([k, v]) for d, (k, v, _) in seen.items()}
+    outs = {d: (torch.cat([o[0], o[2]]), torch.cat([o[1], o[3]]))
+            for d, (_, _, o) in seen.items()}
+    x, (w, lv) = rows["card"], outs["card"]
+    _, want_l = fb.encode_bingrad_fused_plain(x, None, None)
+    own = fe.encode_fused_plain(x, lv, None, None, None, bits=1, mode="bin")
+    lv_err = float((lv - want_l).abs().max())
+    tol = LEVEL_RTOL * float(x.abs().max())
+    res = dict(rows=list(x.shape), level_err_vs_plain=lv_err, level_tol=tol,
+               words_vs_own_threshold=_mismatch(torch, w, own))
+    cw, cl = outs["cpu"]
+    bits = lambda t: torch.stack([(t.cpu() >> i) & 1 for i in range(32)])
+    res.update(
+        rows_max_abs_diff_card_vs_cpu=float(
+            (x.cpu() - rows["cpu"]).abs().max()),
+        levels_max_abs_diff_card_vs_cpu=float((lv.cpu() - cl).abs().max()),
+        word_bits_differ_card_vs_cpu=int((bits(w) != bits(cw)).sum()),
+        word_bits=int(x.numel()))
+    if res["words_vs_own_threshold"] or not lv_err <= tol:
+        raise AssertionError(f"bingrad-b first-layer pages on the card: "
+                             f"{res}")
+    return res
+
+
+def check_against_cpu(torch, dev, scheme="orq-9"):
     """Smoke lm-100m: one prefill and two decode forwards on the card and
-    on the CPU from the same weights, pools and seeds."""
+    on the CPU from the same weights, pools and seeds. For BinGrad-b the
+    first layer's pages of the first forward are held too."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import LM
     from repro_torch.models.model import map_tree
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import engine as engine_mod
 
+    atol = ATOL_LOGITS if scheme == "orq-9" else ATOL_LOGITS_BIN
     model = LM(get_smoke_config("lm-100m"))
     params = map_tree(lambda t: t.to(torch.bfloat16),
                       model.init(torch.Generator().manual_seed(0),
                                  device="cpu"))
-    cfg = ServeConfig(kv_quant="orq-9", page_size=16, max_batch=2,
+    cfg = ServeConfig(kv_quant=scheme, page_size=16, max_batch=2,
                       max_pages_per_seq=4, prefill_chunk=32)
     engines = {d: Engine(model, params, cfg, device=d) for d in (dev, "cpu")}
     prompt = torch.randint(0, 512, (1, 32),
                            generator=torch.Generator().manual_seed(3))
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
     seeds = torch.tensor([11, 12])
+    real_append, seen, which = engine_mod.append_kv, {}, [None]
+
+    def spy(qz, k_rows, v_rows, rbits):   # the first call is layer 0's
+        out = real_append(qz, k_rows, v_rows, rbits)
+        seen.setdefault(which[0], (k_rows.clone(), v_rows.clone(),
+                                   [t.clone() for t in out]))
+        return out
+
     errs = []
     for step in range(3):
         if step == 0:
             args = (table[:1], torch.tensor([0]), seeds[:1], prompt)
+            engine_mod.append_kv = spy
         else:
             args = (table, torch.tensor([31 + step, 0]), seeds,
                     torch.tensor([[7 * step], [9]]))
         out = {}
-        for d, eng in engines.items():
-            if d != "cpu":   # same pools before every call
-                for gc, gg in zip(engines["cpu"].pools, eng.pools):
-                    for pos in gc:
-                        for k in gc[pos]:
-                            gg[pos][k].copy_(gc[pos][k])
-            lg, _, _ = eng._forward(eng.params, eng.pools,
-                                    *[a.to(eng.device) for a in args])
-            out[d] = lg.float().cpu()
+        try:
+            for d, eng in engines.items():
+                if d != "cpu":   # same pools before every call
+                    for gc, gg in zip(engines["cpu"].pools, eng.pools):
+                        for pos in gc:
+                            for k in gc[pos]:
+                                gg[pos][k].copy_(gc[pos][k])
+                which[0] = "cpu" if d == "cpu" else "card"
+                lg, _, _ = eng._forward(eng.params, eng.pools,
+                                        *[a.to(eng.device) for a in args])
+                out[d] = lg.float().cpu()
+        finally:
+            engine_mod.append_kv = real_append
         errs.append(float((out[dev] - out["cpu"]).abs().max()))
-    emit("check", what="smoke engine forward, card vs CPU plain versions",
-         max_abs_logit_err=errs, atol=ATOL_LOGITS)
-    if not max(errs) <= ATOL_LOGITS:
+    pages = (_first_layer_pages(torch, seen) if scheme == "bingrad-b"
+             else None)
+    emit("check", scheme=scheme,
+         what="smoke engine forward, card vs CPU plain versions",
+         max_abs_logit_err=errs, atol=atol, first_layer_pages=pages)
+    if not max(errs) <= atol:
         raise AssertionError(f"card and CPU logits differ by {max(errs)}")
 
 
@@ -608,7 +846,7 @@ def profile_decode(torch, eng):
                                                 "launches": 0})
         c["device_us"] += us
         c["launches"] += count
-    emit("profile", window="4 decode steps, batch 8",
+    emit("profile", scheme=eng.cfg.kv_quant, window="4 decode steps, batch 8",
          wall_ms_unprofiled=plain_wall * 1e3, wall_ms_profiled=wall * 1e3,
          device_us=total, kernel_launches=sum(r[2] for r in rows),
          device_busy_share=total / 1e3 / (plain_wall * 1e3),
@@ -628,58 +866,105 @@ TRAIN_ARGS = ["--arch", "lm-100m", "--quant", "orq-9", "--bucket", "2048",
 TRAIN_WIRE_BYTES = 140_042_960
 TRAIN_EXPECT = {"encode_fused": 10, "decode_fused_mean": 5,
                 "decode_fused_each": 5, "qdq_fused": 2}
+#: BinGrad-b: phase 1, phase 2 and the EF levels are each one fused encode
+BIN_EXPECT = {"encode_bingrad_fused": 12, "decode_fused_mean": 5,
+              "decode_fused_each": 5, "qdq_fused": 2}
+#: the other schemes, one step each: (s, the encode's rounding mode)
+OTHER_SCHEMES = {"bingrad-pb": 2, "terngrad": 3, "qsgd-5": 5, "linear-5": 5,
+                 "minmax2": 2, "signsgd": 2}
 
 
-def _train_counters():
-    from repro_torch.kernels import fused_decode, fused_encode
-    return {"encode_fused": fused_encode.encode_fused_cuda,
-            "decode_fused_mean": fused_decode.decode_fused_mean_cuda,
-            "decode_fused_each": fused_decode.decode_fused_each_cuda,
-            "qdq_fused": fused_encode.qdq_fused_cuda}
+def _expect(want):
+    return {k: want.get(k, 0) for k in _counters()}
+
+
+def wire_bytes_formula(s: int, nb: int = TRAIN_NB, d: int = TRAIN_D) -> int:
+    """The reference's wire bytes per worker and step at L = 1: phase 1 and
+    phase 2 each ship nb buckets of ceil(d / (32 // bits)) uint32 words
+    plus s float32 levels, bits = ceil(log2 s)."""
+    bits = max(1, (s - 1).bit_length())
+    return 2 * nb * (-(-d // (32 // bits)) + s) * 4
+
+
+def _train_runs(torch, quant, runs, expect, wire):
+    """Launcher runs of ``quant``: every counter zeroed just before and
+    read just after; losses finite, wire bytes, replicas in sync."""
+    from repro_torch.launch import train as launcher
+
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, extra in runs:
+        args = list(TRAIN_ARGS)
+        args[args.index("--quant") + 1] = quant
+        args += extra
+        t0 = time.perf_counter()
+        r = launcher.train(args)
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in r["history"]]
+        out[name] = r
+        emit("train", run=name, args=" ".join(args), wall_s=wall,
+             losses=losses, step_s=r["step_s"],
+             step_p50_ms=statistics.median(r["step_s"]) * 1e3,
+             wire_bytes_per_worker=r["wire_bytes_per_worker"],
+             collective_launches_per_step=r["collective_launches_per_step"],
+             n_params=r["n_params"], world_size=r["world_size"],
+             replicas_in_sync=r["replicas_in_sync"],
+             params_sha256=r["params_sha256"])
+        if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+            raise AssertionError(f"train {name}: non-finite loss {losses}")
+        if r["wire_bytes_per_worker"] != wire:
+            raise AssertionError(f"train {name}: wire bytes "
+                                 f"{r['wire_bytes_per_worker']} != {wire}")
+        if not r["replicas_in_sync"]:
+            raise AssertionError(f"train {name}: replicas out of sync")
+    launches = _read_counters()
+    emit("train", run=f"{quant} launches", launches=launches,
+         expected=_expect(expect),
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if launches != _expect(expect):
+        raise AssertionError(f"{quant} training launches {launches} != "
+                             f"{_expect(expect)}")
+    return launches, out
 
 
 def run_train_path(torch):
     """3 orq-9 steps, then 2 with error feedback, through the launcher on
     the world of one that main() started."""
-    from repro_torch.launch import train as launcher
-
-    counters = _train_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    runs = {}
-    for name, extra in (("orq9", ["--steps", "3"]),
-                        ("orq9_ef", ["--steps", "2", "--error-feedback"])):
-        t0 = time.perf_counter()
-        r = launcher.train(TRAIN_ARGS + extra)
-        wall = time.perf_counter() - t0
-        losses = [h["loss"] for h in r["history"]]
-        runs[name] = r
-        emit("train", run=name, args=" ".join(TRAIN_ARGS + extra),
-             wall_s=wall, losses=losses,
-             step_s=r["step_s"], step_p50_ms=statistics.median(
-                 r["step_s"]) * 1e3,
-             wire_bytes_per_worker=r["wire_bytes_per_worker"],
-             collective_launches_per_step=r["collective_launches_per_step"],
-             n_params=r["n_params"], world_size=r["world_size"],
-             params_sha256=r["params_sha256"])
-        if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
-            raise AssertionError(f"train {name}: non-finite loss {losses}")
-        if r["wire_bytes_per_worker"] != TRAIN_WIRE_BYTES:
-            raise AssertionError(f"wire bytes {r['wire_bytes_per_worker']} "
-                                 f"!= {TRAIN_WIRE_BYTES}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    emit("train", run="launches", launches=launches, expected=TRAIN_EXPECT,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    if launches != TRAIN_EXPECT:
-        raise AssertionError(f"training launches {launches} != "
-                             f"{TRAIN_EXPECT}")
+    launches, runs = _train_runs(
+        torch, "orq-9", (("orq9", ["--steps", "3"]),
+                         ("orq9_ef", ["--steps", "2", "--error-feedback"])),
+        TRAIN_EXPECT, TRAIN_WIRE_BYTES)
     return launches, runs["orq9_ef"]["state"]
 
 
-def profile_train(torch, state):
-    """Device time by category over two orq-9 + EF steps, beside the same
-    steps' wall time without the profiler."""
+def run_bingrad_train(torch):
+    """BinGrad-b: 3 steps, then 2 with error feedback."""
+    launches, runs = _train_runs(
+        torch, "bingrad-b",
+        (("bingrad_b", ["--steps", "3"]),
+         ("bingrad_b_ef", ["--steps", "2", "--error-feedback"])),
+        BIN_EXPECT, wire_bytes_formula(2))
+    return launches, runs["bingrad_b_ef"]["state"]
+
+
+def run_other_schemes(torch):
+    """One full-width step of each other scheme: finite loss, the
+    reference's wire bytes, two encodes and one decode of each kind."""
+    total = {}
+    for quant, s in OTHER_SCHEMES.items():
+        launches, _ = _train_runs(
+            torch, quant, ((quant, ["--steps", "1"]),),
+            {"encode_fused": 2, "decode_fused_mean": 1,
+             "decode_fused_each": 1}, wire_bytes_formula(s))
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def profile_train(torch, state, quant="orq-9"):
+    """Device time by category over two ``quant`` + EF steps, beside the
+    same steps' wall time without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import get_config
@@ -692,7 +977,7 @@ def profile_train(torch, state):
 
     cfg = get_config("lm-100m")
     step_fn = make_train_step(
-        LM(cfg), TrainConfig(policy=QuantPolicy.parse("orq-9"),
+        LM(cfg), TrainConfig(policy=QuantPolicy.parse(quant),
                              error_feedback=True), constant_lr(0.05))
     data = SyntheticLM(cfg.vocab_size, 128, 8, seed=0)
     batches = [data.batch(i, device="cuda") for i in range(2)]
@@ -716,7 +1001,8 @@ def profile_train(torch, state):
                                                 "launches": 0})
         c["device_us"] += us
         c["launches"] += count
-    emit("train_profile", window="2 steps, lm-100m orq-9 + EF, batch 8 x 128",
+    emit("train_profile", scheme=quant,
+         window=f"2 steps, lm-100m {quant} + EF, batch 8 x 128",
          wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
          kernel_launches=sum(r[2] for r in rows),
          device_busy_share=total / 1e3 / (plain_wall * 1e3),
@@ -725,10 +1011,22 @@ def profile_train(torch, state):
               for us, k, c in rows[:12]])
 
 
+EXCHANGE_SCHEMES = ("orq-9", "bingrad-b", "bingrad-pb", "terngrad", "qsgd-5",
+                    "linear-5", "minmax2", "signsgd")
+#: schemes whose levels are means (row sums over counts): their phase-2
+#: re-fit sums those levels, which lie off the 1/64 grid
+MEAN_LEVELS = ("bingrad-b", "signsgd")
+
+
 def check_exchange_card_vs_cpu(torch, dev):
     """Smoke lm-100m's fused exchange of one gradient buffer of multiples
     of 1/64 in [-1, 1], on the card (NCCL) and on the CPU (a gloo group of
-    the same world): the means and the EF residuals are bit-equal."""
+    the same world), for every scheme with a fused encode: the means and
+    the EF residuals are bit-equal. (For BinGrad-b and SignSGD the phase-2
+    re-fit sums phase 1's levels, which are means and lie off the grid:
+    there the means are held within 2^-20 of their magnitude and the
+    values that differ are counted; without the phase-2 re-quantization
+    their exchange is bit-equal.)"""
     import torch.distributed as dist
 
     from repro_torch.configs.base import get_smoke_config
@@ -739,28 +1037,42 @@ def check_exchange_card_vs_cpu(torch, dev):
 
     model = LM(get_smoke_config("lm-100m"))
     ap = model.abstract_params()
-    pol = QuantPolicy.parse("orq-9", bucket_size=2048)
     gloo = dist.new_group(ranks=[0], backend="gloo")
-    out = {}
-    for where, group in ((dev, None), ("cpu", gloo)):
-        pex = PartitionedExchange.build(pol, ap, group,
-                                        paths=model.param_paths(ap))
-        n = pex.layout.size
-        g = torch.Generator().manual_seed(5)
-        buf = (torch.randint(-64, 65, (n,), generator=g).float() / 64
-               ).to(where)
-        key = prng.key(9, device=where)
-        out[str(where)] = (pex.exchange_parts([buf], key)[0].cpu(),
-                           pex.local_qdq_parts([buf], key)[0].cpu())
-    (m_card, q_card), (m_cpu, q_cpu) = out[str(dev)], out["cpu"]
-    mism = _mismatch(torch, m_card, m_cpu) + _mismatch(torch, q_card, q_cpu)
-    emit("exchange", what="smoke lm-100m fused exchange + EF qdq of a "
-         "multiple-of-1/64 buffer, card (NCCL) vs CPU (gloo)", n=n,
-         mismatched=mism, mean_abs=float(m_card.abs().mean()))
+    failed = []
+    runs = [(s, s) for s in EXCHANGE_SCHEMES] + [
+        (f"{s} (no phase-2 re-quantization)",
+         json.dumps({"default": {"name": s, "server_requant": False}}))
+        for s in MEAN_LEVELS]
+    for scheme, spec in runs:
+        pol = QuantPolicy.parse(spec, bucket_size=2048)
+        out = {}
+        for where, group in ((dev, None), ("cpu", gloo)):
+            pex = PartitionedExchange.build(pol, ap, group,
+                                            paths=model.param_paths(ap))
+            n = pex.layout.size
+            g = torch.Generator().manual_seed(5)
+            buf = (torch.randint(-64, 65, (n,), generator=g).float() / 64
+                   ).to(where)
+            key = prng.key(9, device=where)
+            out[str(where)] = (pex.exchange_parts([buf], key)[0].cpu(),
+                               pex.local_qdq_parts([buf], key)[0].cpu())
+        (m_card, q_card), (m_cpu, q_cpu) = out[str(dev)], out["cpu"]
+        mean_mism = _mismatch(torch, m_card, m_cpu)
+        qdq_mism = _mismatch(torch, q_card, q_cpu)
+        mean_err = float((m_card - m_cpu).abs().max())
+        emit("exchange", scheme=scheme,
+             what="smoke lm-100m fused exchange + EF qdq of a "
+             "multiple-of-1/64 buffer, card (NCCL) vs CPU (gloo)", n=n,
+             mismatched=mean_mism + qdq_mism, mean_mismatched=mean_mism,
+             qdq_mismatched=qdq_mism, mean_max_abs_diff=mean_err,
+             mean_abs=float(m_card.abs().mean()))
+        tol = (2.0 ** -20 * float(m_cpu.abs().max())
+               if scheme in MEAN_LEVELS else 0.0)
+        if qdq_mism or mean_err > tol:
+            failed.append(scheme)
     dist.destroy_process_group(gloo)
-    if mism:
-        raise AssertionError(f"card and CPU exchanges differ in {mism} "
-                             f"values")
+    if failed:
+        raise AssertionError(f"card and CPU exchanges differ for {failed}")
 
 
 def start_world(torch):
@@ -807,8 +1119,13 @@ def main() -> int:
     att = check_attend(torch, dev)
     dec = check_decode(torch, dev)
     qdq = check_qdq(torch, dev)
-    launches, eng = run_main_path(torch)
+    bgr = check_bingrad(torch, dev)
+    serve_launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
+    profile_decode(torch, eng)
+    del eng
+    bin_serve_launches, eng = run_main_path(torch, "bingrad-b")
+    check_against_cpu(torch, dev, "bingrad-b")
     profile_decode(torch, eng)
     del eng
     dist = start_world(torch)
@@ -816,42 +1133,56 @@ def main() -> int:
         train_launches, state = run_train_path(torch)
         profile_train(torch, state)
         del state
+        bin_train_launches, state = run_bingrad_train(torch)
+        profile_train(torch, state, "bingrad-b")
+        del state
+        other_launches = run_other_schemes(torch)
         check_exchange_card_vs_cpu(torch, dev)
     finally:
         dist.destroy_process_group()
 
-    e, a = enc["decode_rows16"], att["decode_b8"]
+    paths = {"serve_orq9": serve_launches,
+             "serve_bingrad_b": bin_serve_launches,
+             "train_orq9": train_launches,
+             "train_bingrad_b": bin_train_launches,
+             "train_other_schemes": other_launches}
 
-    def row(name, source, replaces, m, by_path):
+    def row(name, source, replaces, m, **extra):
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                **extra}
 
-    t = enc["train_main_shape"]
+    def shape_of(m):
+        return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "device_ms")}
+
+    e, a = enc["decode_rows16"], att["decode_b8"]
     kernels = [
-        dict(row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
-                 "src/repro/kernels/fused_encode.py:255", e,
-                 {"serve": launches["encode_fused"],
-                  "train": train_launches["encode_fused"]}),
-             train_shape={k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "device_ms")}),
+        row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
+            "src/repro/kernels/fused_encode.py:255", e,
+            train_shape=shape_of(enc["train_main_shape"])),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
-            "src/repro/kernels/fused_kv.py:70", a,
-            {"serve": launches["decode_attend"]}),
+            "src/repro/kernels/fused_kv.py:70", a),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
-            "src/repro/kernels/fused_encode.py:283", qdq,
-            {"train": train_launches["qdq_fused"]}),
+            "src/repro/kernels/fused_encode.py:283", qdq),
         row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
-            "src/repro/kernels/fused_decode.py:84",
-            dec["decode_fused_mean"],
-            {"train": train_launches["decode_fused_mean"]}),
+            "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"]),
         row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:107",
-            dec["decode_fused_each"],
-            {"train": train_launches["decode_fused_each"]}),
+            dec["decode_fused_each"]),
+        row("encode_bingrad_fused", "src/repro_torch/csrc/encode_bingrad.cu",
+            "src/repro/kernels/fused_bingrad.py:102",
+            bgr["train_main_shape"], kv_shape=shape_of(bgr["kv_rows16"])),
+        row("bingrad_pass", "src/repro_torch/csrc/encode_bingrad.cu",
+            "src/repro/kernels/bingrad.py:52", bgr["pass/train_main_shape"],
+            kv_shape=shape_of(bgr["pass/kv_rows16"]),
+            note="on no main path: the reference calls it only from its "
+                 "kernel tests"),
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -30,12 +30,13 @@ class QuantConfig:
                                    # averaged gradient on the way back down
 
     def to_quantizer(self) -> Quantizer:
-        if self.refine_iters or self.lloyd_iters:
-            raise NotImplementedError(
-                "refine_iters / lloyd_iters belong to level solvers that are "
-                "not ported to repro_torch yet (see ROADMAP.md)")
-        return make_quantizer(self.name, bucket_size=self.bucket_size,
-                              clip_c=self.clip_c)
+        return make_quantizer(
+            self.name,
+            bucket_size=self.bucket_size,
+            clip_c=self.clip_c,
+            refine_iters=self.refine_iters,
+            lloyd_iters=self.lloyd_iters,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,9 +11,12 @@ Port of the reference's ``core/comm/wire.py`` (the fused paths): the
 level fit is plain PyTorch, everything after it is ONE kernel launch:
 ``encode_fused`` (encode), ``qdq_fused`` (the error-feedback residual),
 ``decode_fused_mean`` (phase 1's server side) or ``decode_fused_each``
-(phase 2's broadcast decode). The rounding stream is drawn on the device
-of the values it rounds, whatever device the key was built on. The
-multi-pass baseline and BinGrad-b's fused encode are not ported yet
+(phase 2's broadcast decode). For BinGrad-b (mode "bin") the fit fuses
+too: ``encode_bingrad_fused`` fits, thresholds and packs in one launch,
+and ``qdq`` takes its levels from that same launch (see :func:`qdq`).
+The rounding stream is drawn on the device of the values it rounds,
+whatever device the key was built on. The multi-pass baseline, which the
+reference takes for a scheme with no fused mode, is not ported yet
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -59,10 +62,6 @@ def encode_rbits(qz: Quantizer, key: torch.Tensor, shape, device=None):
 
 def _check_mode(qz: Quantizer) -> str:
     mode = _fused_mode(qz)
-    if mode == "bin":
-        raise NotImplementedError(
-            "bingrad-b's fused encode (encode_bingrad_fused) is not ported "
-            "to repro_torch yet (see ROADMAP.md)")
     if not mode:
         raise NotImplementedError(
             f"{qz.method!r} has no fused encode; the multi-pass encode is "
@@ -87,8 +86,12 @@ def encode(qz: Quantizer, bkt: torch.Tensor, mask: Optional[torch.Tensor],
     slots forced to index 0. ``mask=None`` marks every slot valid: the fit
     sees an all-true mask and the kernel reads none. ``rbits`` optionally
     supplies the rounding stream; the default draws it from ``key`` on
-    ``bkt``'s device."""
+    ``bkt``'s device. BinGrad-b's fit, threshold and pack are one
+    ``encode_bingrad_fused`` launch."""
     mode = _check_mode(qz)
+    if mode == "bin":
+        return ops.encode_bingrad(bkt, mask, clip_c=qz.clip_c,
+                                  lloyd_iters=qz.lloyd_iters)
     levels = _fit(qz, bkt, mask)                          # runtime levels
     if mode == "rr" and rbits is None:
         rbits = encode_rbits(qz, key, bkt.shape, bkt.device)
@@ -103,9 +106,18 @@ def qdq(qz: Quantizer, bkt: torch.Tensor, mask: Optional[torch.Tensor],
     """Fused local quantize -> dequantize on the wire layout: (nb, d_eff)
     values -> (nb, d_eff) f32, bit-identical to what :func:`encode` puts
     on the wire (same fit, same clip, same rounding stream). One
-    ``qdq_fused`` launch; masked-out slots decode to level 0."""
+    ``qdq_fused`` launch; masked-out slots decode to level 0.
+
+    BinGrad-b's levels come from the encode's own launch
+    (``encode_bingrad_fused``), not from a refit: a fit in another
+    summation order lands a few ulps away from the levels on the wire,
+    and the error-feedback residual must be taken against those."""
     mode = _check_mode(qz)
-    levels = _fit(qz, bkt, mask)
+    if mode == "bin":
+        _, levels = ops.encode_bingrad(bkt, mask, clip_c=qz.clip_c,
+                                       lloyd_iters=qz.lloyd_iters)
+    else:
+        levels = _fit(qz, bkt, mask)
     rbits = encode_rbits(qz, key, bkt.shape, bkt.device)
     return ops.qdq_fused(bkt, levels, rbits, mask, clip_c=qz.clip_c,
                          mode=mode)

@@ -1,12 +1,11 @@
 """Quantizer objects: the paper's schemes and its baselines behind one API.
 
-The port of the reference's ``core/quantizers.py``, reduced to what the
-quantized-KV serving path needs: the scheme's static description
-(``s``, ``wire_bits_per_element``) and the level ``fit``. Only ORQ's
-Algorithm 1 is ported so far; fitting any other scheme raises until its
-solver lands (ROADMAP.md, queue 1). The reference's beyond-paper knobs
-(``refine_iters``, ``lloyd_iters``, ``qsgd_norm``) come with the solvers
-that read them.
+The port of the reference's ``core/quantizers.py``: the scheme's static
+description (``s``, ``wire_bits_per_element``, ``unbiased``) and the
+runtime level ``fit`` of every scheme. The rounding and packing run in
+``core/comm/wire.py``'s fused kernels; the reference's ``assign`` /
+``quantize`` / ``qdq`` / ``encode_wire`` serve only its single-device
+branch, which the port does not take.
 
 Schemes:
     fp          identity (no quantization)
@@ -35,6 +34,16 @@ class Quantizer:
     num_levels: int = 9            # s; must be 2^K+1 for orq
     bucket_size: int = 2048        # paper's d (512 for ImageNet runs)
     clip_c: Optional[float] = None  # TernGrad-style σ-clip factor (None = off)
+    refine_iters: int = 0          # beyond-paper ORQ coordinate sweeps
+    lloyd_iters: int = 0           # beyond-paper BinGrad-b fixed-point iters
+    qsgd_norm: str = "linf"
+
+    @property
+    def unbiased(self) -> bool:
+        # bingrad_pb is "partially biased" (unbiased only inside [b₋₁, b₁];
+        # the clipped tails carry bias — Eq. 14), so it is not listed here.
+        return self.method in ("fp", "orq", "terngrad", "qsgd", "linear",
+                               "minmax2")
 
     @property
     def s(self) -> int:
@@ -55,12 +64,27 @@ class Quantizer:
     def fit(self, bkt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.clip_c is not None and self.method not in ("fp",):
             bkt = clipping.sigma_clip(bkt, mask, self.clip_c)
-        if self.method == "orq":
+        m = self.method
+        if m == "orq":
             K = (self.num_levels - 1).bit_length() - 1
             if 2 ** K + 1 != self.num_levels:
                 raise ValueError(
                     f"ORQ needs s = 2^K + 1, got {self.num_levels}")
-            return L.orq_levels(bkt, mask, K)
-        raise NotImplementedError(
-            f"the {self.method!r} level solver is not ported to repro_torch "
-            f"yet; only 'orq' fits run (see ROADMAP.md, queue 1)")
+            return L.orq_levels(bkt, mask, K, refine_iters=self.refine_iters)
+        if m == "bingrad_pb":
+            b1 = L.bingrad_pb_b1(bkt, mask)
+            return torch.stack([-b1, b1], dim=-1)
+        if m == "bingrad_b":
+            return L.bingrad_b_levels(bkt, mask, lloyd_iters=self.lloyd_iters)
+        if m == "terngrad":
+            return L.terngrad_levels(bkt, mask)
+        if m == "qsgd":
+            return L.qsgd_levels(bkt, mask, self.num_levels,
+                                 norm=self.qsgd_norm)
+        if m == "linear":
+            return L.linear_levels(bkt, mask, self.num_levels)
+        if m == "signsgd":
+            return L.signsgd_scale(bkt, mask)
+        if m == "minmax2":
+            return L.minmax_levels(bkt, mask)
+        raise ValueError(f"unknown method {self.method!r}")

@@ -7,6 +7,9 @@
 #   fused_decode.py   decode_fused_mean / decode_fused_each: unpack ->
 #                     level lookup [-> mean over workers]
 #   fused_kv.py       decode_attend (fused dequant-attention), append_kv
+#   fused_bingrad.py  encode_bingrad_fused: BinGrad-b's level fit +
+#                     threshold + 1-bit pack in one launch
+#   bingrad.py        bingrad_pass: conditional sums + assignment at b0
 #   build.py          nvcc build into build/repro_torch/ + ctypes binding
 #
 # Sources live in ../csrc/.

@@ -35,6 +35,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "encode_fused": ("encode_fused.cu", ("-fmad=false",)),
     "decode_attend": ("decode_attend.cu", ()),
     "decode_fused": ("decode_fused.cu", ("-fmad=false",)),
+    "encode_bingrad": ("encode_bingrad.cu", ("-fmad=false",)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

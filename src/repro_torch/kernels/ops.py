@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bingrad as _bin
+from repro_torch.kernels import fused_bingrad as _fbin
 from repro_torch.kernels import fused_decode as _fdec
 from repro_torch.kernels import fused_encode as _fenc
 from repro_torch.kernels import fused_kv as _fkv
@@ -37,6 +39,25 @@ def qdq_fused(v, levels, rbits, mask, *, clip_c: Optional[float] = None,
     lim = _fenc.clip_limit(v, mask, clip_c)
     fn = _fenc.qdq_fused_cuda if _on_cuda(v) else _fenc.qdq_fused_plain
     return fn(v, levels, rbits, mask, lim, mode=mode)
+
+
+def encode_bingrad(v, mask, *, clip_c: Optional[float] = None,
+                   lloyd_iters: int = 0):
+    """Fully fused BinGrad-b: σ-clip, b₀ search, conditional-mean levels,
+    threshold and 1-bit pack -> ((nb, ceil(d / 32)) int32 words, (nb, 2)
+    f32 levels). ``mask=None`` marks every slot valid."""
+    lim = _fenc.clip_limit(v, mask, clip_c)
+    fn = (_fbin.encode_bingrad_fused_cuda if _on_cuda(v)
+          else _fbin.encode_bingrad_fused_plain)
+    return fn(v, mask, lim, lloyd_iters=lloyd_iters)
+
+
+def bingrad_pass(v, b0, mask):
+    """Conditional sums below / above b₀ plus the assignment: (nb, d)
+    values + (nb, 1) b₀ + (nb, d) mask -> ((nb, d) int32, (nb, 4) f32
+    ``[sum_lo, cnt_lo, sum_hi, cnt_hi]``)."""
+    fn = _bin.bingrad_pass_cuda if _on_cuda(v) else _bin.bingrad_pass_plain
+    return fn(v, b0, mask)
 
 
 def decode_fused_mean(words, levels, d: int, *, bits: int):

@@ -13,7 +13,10 @@ is exact for every L. (The reference's own jnp oracle sums, then scales,
 and agrees with its kernel only when L is a power of two:
 ``wire.py:25-29``; for such L, and for L = 1, fma and a separate
 multiply and add agree, since the product is exact.)
-``kv_attend_block`` is THE definition of the serving engine's
+``encode_bingrad_fused_ref`` is BinGrad-b's whole encode as separate
+sweeps (σ-clip, the Eq. 17 level fit, threshold at the midpoint, pack);
+``bingrad_pass_ref`` the conditional sums and the assignment at a given
+b₀. ``kv_attend_block`` is THE definition of the serving engine's
 dequant-attention math; ``fused_kv.decode_attend_plain`` is this
 function, and the CUDA kernel is held float-close to it.
 """
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import clipping, encode
+from repro_torch.core import levels as L
 from repro_torch.core.floats import fma_f32
 from repro_torch.core.rounding import uniform_from_bits
 
@@ -82,6 +86,34 @@ def qdq_fused_ref(v: torch.Tensor, levels: torch.Tensor,
     slots decoded to level 0."""
     idx = _round_ref(v, levels, rbits, mask, clip_c, mode)
     return torch.gather(levels.to(torch.float32), 1, idx)
+
+
+def encode_bingrad_fused_ref(v: torch.Tensor, mask: torch.Tensor, *,
+                             clip_c: Optional[float] = None,
+                             lloyd_iters: int = 0):
+    """Oracle for ``fused_bingrad.encode_bingrad_fused``: ((nb, ceil(d /
+    32)) int32 words, (nb, 2) f32 levels)."""
+    v = v.to(torch.float32)
+    if clip_c is not None:
+        v = clipping.sigma_clip(v, mask, clip_c)
+    lv = L.bingrad_b_levels(v, mask, lloyd_iters=lloyd_iters)
+    idx = _round_ref(v, lv, None, mask, None, "bin")
+    return encode.pack(idx, 1), lv
+
+
+def bingrad_pass_ref(v: torch.Tensor, b0: torch.Tensor, mask: torch.Tensor):
+    """Oracle for ``bingrad.bingrad_pass``: ((nb, d) int32 assignment
+    ``v >= b0`` on valid slots, (nb, 4) f32 ``[sum_lo, cnt_lo, sum_hi,
+    cnt_hi]``)."""
+    v = v.to(torch.float32)
+    m = mask.to(torch.float32)
+    ge = (v >= b0.to(torch.float32)).to(torch.float32)
+    hi = ge * m
+    lo = (1.0 - ge) * m
+    idx = (hi > 0).to(torch.int32)
+    part = torch.stack([(v * lo).sum(-1), lo.sum(-1), (v * hi).sum(-1),
+                        hi.sum(-1)], dim=-1)
+    return idx, part
 
 
 def level_lookup(idx: torch.Tensor, lv: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ separately; a sha256 digest of the generated tokens is printed.
 
     python -m repro_torch.launch.serve --kv-quant orq-9 --batch 8 \\
         --prompt-len 128 --gen 32 --max-len 512 --prefill-chunk 64
+    python -m repro_torch.launch.serve --kv-quant bingrad-b --batch 8 \\
+        --prompt-len 128 --gen 32 --max-len 512 --prefill-chunk 64
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions. The
 dense ring-buffer path (no ``--kv-quant``) is not ported yet.
@@ -93,8 +95,10 @@ def parse_args(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prefill chunk size (0 = 16)")
     ap.add_argument("--kv-quant", default="",
-                    help="paged-engine KV scheme (orq-3/5/9/17; bf16 = "
-                         "unquantized pages)")
+                    help="paged-engine KV scheme: any scheme with a "
+                         "fused encode (orq-*, bingrad-b, bingrad-pb, "
+                         "terngrad, qsgd-*, linear-*, signsgd, minmax2); "
+                         "bf16 = unquantized pages")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")

@@ -3,6 +3,8 @@
 
     python -m repro_torch.launch.train --arch lm-100m --steps 100 \\
         --quant orq-9 --batch 8 --seq 128 [--error-feedback]
+    python -m repro_torch.launch.train --arch lm-100m --steps 100 \\
+        --quant bingrad-b --batch 8 --seq 128 [--error-feedback]
 
     # several workers, one card each (torchrun sets RANK / WORLD_SIZE /
     # MASTER_ADDR / MASTER_PORT; NCCL on the cards):
@@ -69,9 +71,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--quant", default="fp", metavar="SCHEME|POLICY",
         help="quantization scheme or per-parameter-group policy string "
-             "('pattern=scheme[,...][,default=scheme]'). The port fits "
-             f"levels for fp and orq-*; registered schemes: "
-             f"{', '.join(all_methods())}")
+             "('pattern=scheme[,...][,default=scheme]'); registered "
+             f"schemes: {', '.join(all_methods())}")
     ap.add_argument("--bucket", type=int, default=2048)
     ap.add_argument("--clip-c", type=float, default=None)
     ap.add_argument("--mode", default="replicated",

@@ -7,7 +7,8 @@ prefill at (1, chunk). Each attention layer
 
     projects q/k/v for the incoming tokens, applies rope at their
     absolute positions, quantizes the new K/V rows (level fit, then ONE
-    ``encode_fused`` launch for K and V together: ``append_kv``), writes
+    ``encode_fused`` launch for K and V together, or for BinGrad-b one
+    ``encode_bingrad_fused`` launch that fits too: ``append_kv``), writes
     them into their pages, gathers the sequence's pages into a contiguous
     context view, and attends through the fused dequant-attention kernel
     (``ops.decode_attend``) — or, for the bf16 escape hatch, stores raw
@@ -15,7 +16,7 @@ prefill at (1, chunk). Each attention layer
 
 Determinism: random-round schemes key their threefry stream on (request
 seed, absolute position, layer, K/V), never on batch shape or slot
-index, so a sequence's greedy tokens are identical whether it runs alone
+index (BinGrad-b and SignSGD round deterministically and draw none), so a sequence's greedy tokens are identical whether it runs alone
 or mixed into a busy batch. Inactive decode slots point at the trash page
 and their outputs are discarded.
 
@@ -67,13 +68,9 @@ class Engine:
         self.kvq = KVQuantSpec(cfg.kv_quant, mc.num_kv_heads,
                                mc.resolved_head_dim, clip_c=cfg.clip_c)
         if not self.kvq.is_bf16:
+            from repro_torch.core.comm import wire
             self.qz = self.kvq.quantizer()
-            if self.qz.method != "orq":
-                raise NotImplementedError(
-                    f"--kv-quant {cfg.kv_quant!r} is not ported to "
-                    f"repro_torch yet; the paged engine serves orq-* and "
-                    f"bf16 (see ROADMAP.md)")
-            self._rr = True
+            self._rr = wire._fused_mode(self.qz) == "rr"
         else:
             self.qz, self._rr = None, False
         self.C_max = cfg.max_context

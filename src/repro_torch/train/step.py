@@ -45,9 +45,6 @@ from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 # reference's per-leaf (crc32-of-path) streams
 _FUSED_SALT = zlib.crc32(b"fused_exchange") & 0x7FFFFFFF
 
-#: schemes whose level fit the port has (ROADMAP.md lists the others)
-_FITTED = ("fp", "orq")
-
 #: the paper's optimizer: SGD with momentum 0.9, no weight decay
 _OPTIMIZER = opt_lib.sgd_momentum(momentum=0.9)
 
@@ -99,17 +96,10 @@ def exchange_engine(model: LM, tcfg: TrainConfig,
     """The fused exchange the step runs, laid out from the model's
     parameter shapes."""
     params = model.abstract_params()
-    pex = PartitionedExchange.build(
+    return PartitionedExchange.build(
         tcfg.resolved_policy(), params, group,
         paths=model.param_paths(params),
         max_chunk_elems=tcfg.exchange_chunk_elems)
-    for eng in pex.engines:
-        if eng.qz.method not in _FITTED:
-            raise NotImplementedError(
-                f"the {eng.qz.method!r} level solver is not ported to "
-                f"repro_torch yet; schemes that train: {_FITTED} (see "
-                f"ROADMAP.md)")
-    return pex
 
 
 def make_train_step(model: LM, tcfg: TrainConfig,

@@ -262,8 +262,14 @@ def test_bf16_escape_hatch_matches_dense_attention(weights):
 
 
 def test_unported_schemes_raise(weights):
+    """Every scheme with a fused encode serves now (BinGrad-b and SignSGD
+    round deterministically and draw no rounding stream; the random-round
+    schemes do); ``fp`` KV pages, which have no fused encode, still
+    raise."""
     _, _, _, tm, tp = weights
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(tm, tp, _cfg(ServeConfig, "bingrad-b"), device="cpu")
+    for scheme, rr in (("bingrad-b", False), ("signsgd", False),
+                       ("terngrad", True), ("qsgd-5", True)):
+        eng = Engine(tm, tp, _cfg(ServeConfig, scheme), device="cpu")
+        assert eng._rr == rr
     with pytest.raises(ValueError, match="fused one-pass encode"):
         Engine(tm, tp, _cfg(ServeConfig, "fp"), device="cpu")

@@ -270,7 +270,7 @@ def test_step_draws_on_params_device(world1, ref_runs, monkeypatch):
     assert all(d == dev for d, _ in seen)
 
 
-def test_train_config_refuses_unported():
+def test_train_config_refuses_unported(world1):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(mode="fsdp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -279,9 +279,18 @@ def test_train_config_refuses_unported():
         TrainConfig(pipeline_chunks=2)
     with pytest.raises(TypeError):
         TrainConfig(local_steps=4)
+    # every level solver is ported: each scheme's exchange builds
     model = LM(get_smoke_config("lm-100m"))
-    with pytest.raises(NotImplementedError, match="level solver"):
-        exchange_engine(model, TrainConfig(policy="terngrad"))
+    for name, method in (("terngrad", "terngrad"), ("bingrad-b", "bingrad_b"),
+                         ("signsgd", "signsgd")):
+        pex = exchange_engine(model, TrainConfig(policy=name))
+        assert [e.qz.method for e in pex.engines] == [method]
+    # a scheme with no fused encode takes the multi-pass path (not ported)
+    from repro_torch.core.comm.exchange import GradientExchange
+    from repro_torch.core.quantizers import Quantizer
+    with pytest.raises(NotImplementedError, match="multi-pass"):
+        GradientExchange(Quantizer(method="custom")).exchange_flat(
+            torch.zeros(8), prng.key(0))
 
 
 def _cli(*args):
@@ -310,9 +319,12 @@ def test_cli_runs_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--mode", "fsdp"],
                                    ["--pipeline-chunks", "2"],
                                    ["--bit-schedule", "default=orq@5..3"],
-                                   ["--resume", "x"], ["--quant", "terngrad"]])
+                                   ["--resume", "x"],
+                                   ["--per-leaf-exchange"]])
 def test_cli_refuses_unported_flags(flags, capsys):
-    """Refused while parsing, before any process group or model exists."""
+    """Refused while parsing, before any process group or model exists.
+    (Every ``--quant`` scheme trains now; see
+    ``test_torch_train_schemes.py``.)"""
     from repro_torch.launch import train as launcher
     with pytest.raises(SystemExit) as e:
         launcher.train(["--smoke", "--device", "cpu", *flags])
