@@ -15,6 +15,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (16 rows of 768) and the training shape, bit-equal on
             multiples of 1/64, elsewhere levels / sums within LEVEL_RTOL
             and words the exact threshold of the kernel's own levels.
+            The multi-pass kernels: ``quant_rr`` (s 2, 3, 5, 9, 17),
+            ``pack`` and ``unpack`` (bits 1-5), ``dequant_avg`` (L 1, 3,
+            4), bit-equal at nb 5 × d 37, nb 1 × d 129 and the training
+            shape.
             Times per call of the kernel, the plain version and the library
             yardstick: ``*ms`` from CUDA events around back-to-back calls
             (host work between launches included), ``*device_ms`` the
@@ -56,8 +60,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (every fit's sums exact in any order) on the card and on the
             CPU (gloo), for every scheme: outputs and EF residuals
             bit-equal.
+9. multipass lm-100m's full-width gradient (seed 0, batch 8 × 128)
+            through ``wire.encode_multipass`` and the multi-pass decodes
+            for every scheme, held against the fused path (encode and
+            mean decode bit-equal, BinGrad-b's levels within LEVEL_RTOL;
+            per-worker decode by value) at L = 1 and 4, with the launch
+            counts of each call and both paths' times. (The four kernels
+            are checked and timed in phase 3: torch.profiler has been
+            seen to lose kernel events late in this long process.)
 
-Then the kernels JSON line, the ``nvidia-smi`` name/power line, and last
+Then the kernels JSON line (all eleven kernels), the ``nvidia-smi``
+name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -80,6 +93,9 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 ATOL_ATTEND = 1e-5             # online softmax reorders the f32 sums
 ATOL_LOGITS = 0.25             # bf16 matmuls + 4-bit rounding flips
 ATOL_LOGITS_BIN = 1.0          # bf16 matmuls + 1-bit threshold flips
+#: idle seconds at each end of a profiling window: torch.profiler can drop
+#: kernel events near the edges of its window
+PROFILE_PAD_S = 0.1
 
 
 def emit(phase: str, **kw) -> None:
@@ -132,18 +148,37 @@ def _kernel_events(prof):
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
     """Milliseconds of device (kernel) time per call, from torch.profiler:
-    the sum of the device times of every kernel ``fn`` launches."""
+    the sum of the device times of every kernel ``fn`` launches. Each call
+    launches the same kernels, so every kernel's event count is a multiple
+    of ``calls`` unless the profiler lost events (seen on the card: one of
+    ten, now and then). Such a profile is taken again; if all ``attempts``
+    lose events, each kernel counts as its mean recorded duration times
+    its launches per call (the count rounded up to a multiple of
+    ``calls``), and the loss is reported. A profile with no kernel event
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in _kernel_events(prof)) / calls / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        rows = _kernel_events(prof)
+        if rows and all(count % calls == 0 for _, _, count in rows):
+            return sum(r[0] for r in rows) / calls / 1e3
+        emit("profiler", lost_events={n[:60]: c for _, n, c in rows},
+             calls=calls)
+    if not rows:
+        raise AssertionError(f"the profiler recorded no kernel of {fn} in "
+                             f"{attempts} profiles")
+    per_call = sum(us / count * -(-count // calls) for us, _, count in rows)
+    return per_call / 1e3
 
 
 def _category(kernel_name: str) -> str:
@@ -660,15 +695,19 @@ SERVE_SCHEMES = {"orq-9": ("encode_fused", 840, 0.2734),
 
 def _counters():
     """Every kernel's launch counter (the CUDA wrappers)."""
-    from repro_torch.kernels import (bingrad, fused_bingrad, fused_decode,
-                                     fused_encode, fused_kv)
+    from repro_torch.kernels import (bingrad, bitpack, dequant_avg,
+                                     fused_bingrad, fused_decode,
+                                     fused_encode, fused_kv, quant_rr)
     return {"encode_fused": fused_encode.encode_fused_cuda,
             "decode_attend": fused_kv.decode_attend_cuda,
             "qdq_fused": fused_encode.qdq_fused_cuda,
             "decode_fused_mean": fused_decode.decode_fused_mean_cuda,
             "decode_fused_each": fused_decode.decode_fused_each_cuda,
             "encode_bingrad_fused": fused_bingrad.encode_bingrad_fused_cuda,
-            "bingrad_pass": bingrad.bingrad_pass_cuda}
+            "bingrad_pass": bingrad.bingrad_pass_cuda,
+            "quant_rr": quant_rr.quant_rr_cuda, "pack": bitpack.pack_cuda,
+            "unpack": bitpack.unpack_cuda,
+            "dequant_avg": dequant_avg.dequant_avg_cuda}
 
 
 def _zero_counters():
@@ -833,11 +872,13 @@ def profile_decode(torch, eng):
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(4):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
     by_cat = {}
@@ -990,9 +1031,11 @@ def profile_train(torch, state, quant="orq-9"):
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for b in batches:
             state, _ = step_fn(state, b, key)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
     by_cat = {}
@@ -1075,6 +1118,326 @@ def check_exchange_card_vs_cpu(torch, dev):
         raise AssertionError(f"card and CPU exchanges differ for {failed}")
 
 
+# ---------------------------------------------------------------------------
+# the multi-pass wire path: its kernels (phase 3) and the path (phase 9)
+# ---------------------------------------------------------------------------
+
+TRAIN_N = 135_285_504          # lm-100m's gradients
+#: the training shape's levels at each s: a scheme of the registry fits them
+S_SCHEME = {2: "minmax2", 3: "terngrad", 5: "orq-5", 9: "orq-9",
+            17: "orq-17"}
+MP_SMALL = {"nb5_d37": (5, 37), "nb1_d129": (1, 129)}
+
+
+def _mp_train_values(torch, dev, g):
+    """Gradient-like values at the training shape, the last bucket's
+    tail masked (zero), and the mask."""
+    mask = (torch.arange(TRAIN_NB * TRAIN_D, device=dev) < TRAIN_N
+            ).reshape(TRAIN_NB, TRAIN_D)
+    v = torch.where(mask, (torch.randn((TRAIN_NB, TRAIN_D), generator=g)
+                           * 1e-3).to(dev), 0.0)
+    return v, mask
+
+
+def _timed(torch, name, case, kern, plain, moved, ops, library=None,
+           **extra):
+    """Times of a kernel at the training shape: ``ms`` (events) and
+    ``device_ms`` (profiler) of the kernel, its plain version and the
+    library yardstick, beside the bound."""
+    ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(plain, reps=2,
+                                                              rounds=3)
+    dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
+    lib_ms = lib_dev_ms = None
+    if library is not None:
+        lib_ms, lib_dev_ms = time_ms(library, reps=10, rounds=3), device_ms(
+            library)
+    b_ms, b_by = bound(moved, ops)
+    res = dict(shape=[TRAIN_NB, TRAIN_D], ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, device_ms=dev_ms,
+               plain_device_ms=plain_dev_ms, library_device_ms=lib_dev_ms,
+               bytes=moved, bound_ms=b_ms, bound_by=b_by, **extra)
+    emit("kernel", kernel=name, case=case, **res)
+    return res
+
+
+def _hold(torch, name, case, got, want, **row):
+    """A multi-pass kernel against its plain version: bit-equal, floats
+    as bit patterns (so the sign of a zero counts)."""
+    torch.cuda.synchronize()
+    a, b = got.cpu(), want.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    mism = int((a != b).sum()) if a.shape == b.shape else -1
+    emit("kernel", kernel=name, case=case, mismatched=mism, **row)
+    if mism:
+        raise AssertionError(f"{name} {case}: {mism} values differ from the "
+                             f"plain version")
+
+
+def check_multipass_kernels(torch, dev):
+    """quant_rr (s 2, 3, 5, 9, 17), pack and unpack (bits 1-5) and
+    dequant_avg (L 1, 3, 4) against their plain versions, bit-equal, at
+    nb 5 × d 37, nb 1 × d 129 and the training shape (66,058 buckets of
+    2048, the last one's tail masked); then each timed at the training
+    shape (quant_rr s 9, pack/unpack 4 bits, dequant_avg L 1 and 4; the
+    library yardstick of dequant_avg at L 1 is one ``torch.gather``)."""
+    from repro_torch.core.api import make_quantizer
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import dequant_avg as dq
+    from repro_torch.kernels import quant_rr as qr
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    results = {}
+    shapes = dict(MP_SMALL, train=(TRAIN_NB, TRAIN_D))
+    for case, (nb, d) in shapes.items():
+        if case == "train":
+            v, mask = _mp_train_values(torch, dev, g)
+        else:
+            v = (torch.randn((nb, d), generator=g) * 0.3).to(dev)
+            v[0, :2] = torch.tensor([-10.0, 10.0])    # outside every table
+            mask = torch.ones_like(v, dtype=torch.bool)
+        rb = torch.randint(-2 ** 31, 2 ** 31, (nb, d), device=dev,
+                           dtype=torch.int64).to(torch.int32)
+        for s in (2, 3, 5, 9, 17):
+            lv = make_quantizer(S_SCHEME[s]).fit(v, mask)
+            if case != "train":
+                lv[0, :] = lv[0, :1]                  # equal levels
+            got = qr.quant_rr_cuda(v, lv, rb)
+            _hold(torch, "quant_rr", f"{case}_s{s}", got,
+                  qr.quant_rr_plain(v, lv, rb), shape=[nb, d], s=s)
+            if case == "train" and s == 9:
+                results["quant_rr"] = _timed(
+                    torch, "quant_rr", "train_main_shape",
+                    lambda: qr.quant_rr_cuda(v, lv, rb),
+                    lambda: qr.quant_rr_plain(v, lv, rb),
+                    nbytes(v, lv, rb, got), float(nb * d * (2 * s + 8)),
+                    s=s, max_abs_err=0.0)
+            del got
+        del rb
+        for nbits in (1, 2, 3, 4, 5):
+            idx = torch.where(mask, torch.randint(
+                0, 2 ** nbits, (nb, d), device=dev, dtype=torch.int32), 0)
+            words = bp.pack_cuda(idx, nbits)
+            _hold(torch, "pack", f"{case}_bits{nbits}", words,
+                  bp.pack_plain(idx, nbits), shape=[nb, d], bits=nbits)
+            back = bp.unpack_cuda(words, nbits, d)
+            _hold(torch, "unpack", f"{case}_bits{nbits}", back,
+                  bp.unpack_plain(words, nbits, d), shape=[nb, d],
+                  bits=nbits)
+            if not torch.equal(back, idx):
+                raise AssertionError(f"unpack(pack) {case} bits {nbits}")
+            if case == "train" and nbits == 4:
+                results["pack"] = _timed(
+                    torch, "pack", "train_main_shape",
+                    lambda: bp.pack_cuda(idx, 4),
+                    lambda: bp.pack_plain(idx, 4), nbytes(idx, words),
+                    float(nb * d * 2), bits=4, max_abs_err=0.0)
+                results["unpack"] = _timed(
+                    torch, "unpack", "train_main_shape",
+                    lambda: bp.unpack_cuda(words, 4, d),
+                    lambda: bp.unpack_plain(words, 4, d),
+                    nbytes(words, back), float(nb * d * 2), bits=4,
+                    max_abs_err=0.0)
+            del idx, words, back
+        del v, mask
+        for L in (1, 3, 4):
+            idx = torch.randint(0, 16, (L, nb, d), device=dev,
+                                dtype=torch.int32)
+            idx[:, 0, :2] = torch.tensor([-1, 15])    # decode to 0
+            lv = torch.sort(torch.randn((L, nb, 9), device=dev)).values
+            lv[:, 0, 0] = -0.0
+            out = dq.dequant_avg_cuda(idx, lv)
+            _hold(torch, "dequant_avg", f"{case}_L{L}", out,
+                  dq.dequant_avg_plain(idx, lv), shape=[nb, d], L=L, s=9)
+            if case == "train" and L in (1, 4):
+                lib = None
+                if L == 1:
+                    idx64 = idx[0].to(torch.int64).clamp_(0, 8)
+                    lib = lambda: torch.gather(lv[0], 1, idx64)
+                results[f"dequant_avg_L{L}"] = _timed(
+                    torch, "dequant_avg", f"train_main_shape_L{L}",
+                    lambda: dq.dequant_avg_cuda(idx, lv),
+                    lambda: dq.dequant_avg_plain(idx, lv),
+                    nbytes(idx, lv, out), float(nb * d * L * 2), library=lib,
+                    L=L, s=9, max_abs_err=0.0)
+            del idx, lv, out
+    return results
+
+
+#: the multi-pass phase's schemes: the registry's, and the two σ-clip
+#: cases of the reference's fused-parity tests
+MP_SCHEMES = ("orq-9", "orq-17", "bingrad-b", "bingrad-pb", "terngrad",
+              "qsgd-5", "linear-5", "minmax2", "signsgd", "terngrad-clip2.5",
+              "bingrad-b-lloyd2-clip2.5")
+MP_KERNELS = ("quant_rr", "pack", "unpack", "dequant_avg")
+
+
+def _mp_quantizer(name):
+    from repro_torch.core.api import make_quantizer
+    from repro_torch.core.quantizers import Quantizer
+    if name == "terngrad-clip2.5":
+        return Quantizer(method="terngrad", clip_c=2.5)
+    if name == "bingrad-b-lloyd2-clip2.5":
+        return Quantizer(method="bingrad_b", clip_c=2.5, lloyd_iters=2)
+    return make_quantizer(name)
+
+
+def full_width_gradient(torch, dev):
+    """The flat gradient of one full-width lm-100m step (f32 weights from
+    seed 0, batch 8 × 128 of the synthetic stream), laid out by
+    ``GradLayout`` and cut into buckets of 2048: the buffer the main
+    path's exchange encodes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import buckets
+    from repro_torch.core.comm.exchange import GradLayout
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("lm-100m")
+    model = LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    batch = SyntheticLM(cfg.vocab_size, 128, 8, seed=0).batch(0, device=dev)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss(p, batch)
+    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(p)))
+    flat = GradLayout.from_tree(params).flatten(grads)
+    del p, grads, params
+    if flat.numel() != TRAIN_N or not bool(torch.isfinite(flat).all()):
+        raise AssertionError(f"gradient of {flat.numel()} values, finite "
+                             f"{bool(torch.isfinite(flat).all())}")
+    bkt, mask = buckets.to_buckets(flat, TRAIN_D)
+    return bkt, mask, float(loss.detach())
+
+
+def _events_ms(torch, fn) -> float:
+    """Milliseconds of one call (already warm), CUDA events around it."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _counted(torch, fn, want, totals, what):
+    """``fn()`` with every counter zeroed just before and read just after;
+    the counts must be ``want`` (every other counter 0). Adds them to
+    ``totals``."""
+    _zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _read_counters()
+    if got != _expect(want):
+        raise AssertionError(f"{what}: launches {got} != {_expect(want)}")
+    for k, n in got.items():
+        totals[k] = totals.get(k, 0) + n
+    return out, {k: n for k, n in got.items() if n}
+
+
+def run_multipass_path(torch, dev):
+    """Every scheme's multi-pass encode and decodes at full width on
+    lm-100m's gradient, against the fused path: encode bit-equal (for
+    BinGrad-b the levels within LEVEL_RTOL / FLIP_SHARE, the words the
+    exact threshold of the multi-pass levels), mean decode bit-equal,
+    per-worker decode equal by value, at L = 1 and at L = 4 (units from
+    keys 0-3); launch counts per call; times of both paths."""
+    from repro_torch.core import prng
+    from repro_torch.core.comm import wire
+    from repro_torch.kernels import fused_encode as fe
+
+    bkt, mask, loss = full_width_gradient(torch, dev)
+    emit("multipass", what="full-width lm-100m gradient", loss=loss,
+         buckets=list(bkt.shape), valid=int(mask.sum()),
+         abs_max=float(bkt.abs().max()))
+    totals, failed = {}, []
+    d = TRAIN_D
+    for name in MP_SCHEMES:
+        qz = _mp_quantizer(name)
+        rr = wire._fused_mode(qz) == "rr"
+        keys = [prng.key(k, device=dev) for k in range(4)]
+        enc = {"quant_rr": 1, "pack": 1} if rr else {"pack": 1}
+        (w_m, l_m), enc_launches = _counted(
+            torch, lambda: wire.encode_multipass(qz, bkt, mask, keys[0]),
+            enc, totals, f"{name} encode_multipass")
+        w_f, l_f = wire.encode(qz, bkt, mask, keys[0])
+        res = dict(scheme=name, encode_launches=enc_launches)
+        if qz.method == "bingrad_b":
+            diff = (l_m - l_f).abs()
+            vmax = float((bkt.abs() * mask).max())
+            far = int((diff > LEVEL_RTOL * vmax).any(dim=1).sum())
+            lim = fe.clip_limit(bkt, mask, qz.clip_c)
+            own = fe.encode_fused_cuda(bkt, l_m, None, mask, lim, bits=1,
+                                       mode="bin")
+            res.update(level_max_abs_diff=float(diff.max()),
+                       level_rows_beyond_tol=far,
+                       words_vs_own_threshold=_mismatch(torch, w_m, own))
+            ok = (res["words_vs_own_threshold"] == 0
+                  and far <= FLIP_SHARE * bkt.shape[0]
+                  and res["level_max_abs_diff"] <= FLIP_RTOL * vmax)
+            del own
+        else:
+            res.update(
+                words_mismatched=_mismatch(torch, w_m, w_f),
+                levels_mismatched=_mismatch(torch, l_m.view(torch.int32),
+                                            l_f.view(torch.int32)))
+            ok = res["words_mismatched"] == 0 and res["levels_mismatched"] == 0
+        res["encode_ms"] = {
+            "multipass": _events_ms(torch, lambda: wire.encode_multipass(
+                qz, bkt, mask, keys[0])),
+            "fused": _events_ms(torch, lambda: wire.encode(qz, bkt, mask,
+                                                           keys[0]))}
+        units = [(w_f, l_f)] + [wire.encode(qz, bkt, mask, k)
+                                for k in keys[1:]]
+        del w_m, l_m, w_f, l_f
+        for L in (1, 4):
+            ws = torch.stack([u[0] for u in units[:L]])
+            lvs = torch.stack([u[1] for u in units[:L]])
+            mean_m, mean_launches = _counted(
+                torch, lambda: wire.decode_mean_multipass(qz, ws, lvs, d),
+                {"unpack": 1, "dequant_avg": 1}, totals,
+                f"{name} decode_mean_multipass L={L}")
+            mean_f = wire.decode_mean(qz, ws, lvs, d)
+            res[f"L{L}_mean_mismatched_bits"] = _mismatch(
+                torch, mean_m.view(torch.int32), mean_f.view(torch.int32))
+            del mean_m, mean_f
+            each_m, each_launches = _counted(
+                torch, lambda: wire.decode_each_multipass(qz, ws, lvs, d),
+                {"unpack": 1}, totals, f"{name} decode_each_multipass L={L}")
+            each_f = wire.decode_each(qz, ws, lvs, d)
+            res[f"L{L}_each_mismatched"] = _mismatch(torch, each_m, each_f)
+            del each_m, each_f
+            res[f"L{L}_decode_launches"] = {"mean": mean_launches,
+                                            "each": each_launches}
+            res[f"L{L}_decode_ms"] = {
+                "mean_multipass": _events_ms(
+                    torch, lambda: wire.decode_mean_multipass(qz, ws, lvs,
+                                                              d)),
+                "mean_fused": _events_ms(
+                    torch, lambda: wire.decode_mean(qz, ws, lvs, d)),
+                "each_multipass": _events_ms(
+                    torch, lambda: wire.decode_each_multipass(qz, ws, lvs,
+                                                              d)),
+                "each_fused": _events_ms(
+                    torch, lambda: wire.decode_each(qz, ws, lvs, d))}
+            ok = ok and res[f"L{L}_mean_mismatched_bits"] == 0 \
+                and res[f"L{L}_each_mismatched"] == 0
+            del ws, lvs
+        del units
+        res["ok"] = ok
+        emit("multipass", **res)
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"multi-pass path disagrees with the fused path "
+                             f"for {failed}")
+    emit("multipass", what="launches over the phase's counted calls",
+         launches={k: n for k, n in totals.items() if n})
+    return totals
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -1120,6 +1483,7 @@ def main() -> int:
     dec = check_decode(torch, dev)
     qdq = check_qdq(torch, dev)
     bgr = check_bingrad(torch, dev)
+    mpk = check_multipass_kernels(torch, dev)
     serve_launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
     profile_decode(torch, eng)
@@ -1138,6 +1502,7 @@ def main() -> int:
         del state
         other_launches = run_other_schemes(torch)
         check_exchange_card_vs_cpu(torch, dev)
+        mp_launches = run_multipass_path(torch, dev)
     finally:
         dist.destroy_process_group()
 
@@ -1145,7 +1510,11 @@ def main() -> int:
              "serve_bingrad_b": bin_serve_launches,
              "train_orq9": train_launches,
              "train_bingrad_b": bin_train_launches,
-             "train_other_schemes": other_launches}
+             "train_other_schemes": other_launches,
+             "multipass_exchange": mp_launches}
+    unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
+    if unlaunched:
+        raise AssertionError(f"the multi-pass path launched no {unlaunched}")
 
     def row(name, source, replaces, m, **extra):
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
@@ -1153,7 +1522,8 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "plain_ms": m["plain_ms"], "device_ms": m["device_ms"],
+                "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                 **extra}
 
@@ -1183,6 +1553,20 @@ def main() -> int:
             kv_shape=shape_of(bgr["pass/kv_rows16"]),
             note="on no main path: the reference calls it only from its "
                  "kernel tests"),
+    ]
+    mp_note = ("on no main path: the reference's parity baseline and its "
+               "fallback encode")
+    mp_src = "src/repro_torch/csrc/multipass.cu"
+    kernels += [
+        row("quant_rr", mp_src, "src/repro/kernels/quant_rr.py:74",
+            mpk["quant_rr"], note=mp_note),
+        row("pack", mp_src, "src/repro/kernels/bitpack.py:46", mpk["pack"],
+            note=mp_note),
+        row("unpack", mp_src, "src/repro/kernels/bitpack.py:65",
+            mpk["unpack"], note=mp_note),
+        row("dequant_avg", mp_src, "src/repro/kernels/dequant_avg.py:50",
+            mpk["dequant_avg_L1"], L4=shape_of(mpk["dequant_avg_L4"]),
+            note=mp_note),
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,19 @@
 """Quantizer objects: the paper's schemes and its baselines behind one API.
 
-The port of the reference's ``core/quantizers.py``: the scheme's static
-description (``s``, ``wire_bits_per_element``, ``unbiased``) and the
-runtime level ``fit`` of every scheme. The rounding and packing run in
-``core/comm/wire.py``'s fused kernels; the reference's ``assign`` /
-``quantize`` / ``qdq`` / ``encode_wire`` serve only its single-device
-branch, which the port does not take.
+The port of the reference's ``core/quantizers.py``. A ``Quantizer`` is a
+stateless recipe with three stages that mirror Algorithm 2's per-worker
+step:
+
+    fit(bkt, mask)           -> levels   (runtime level selection — the paper)
+    assign(bkt, levels, key) -> idx      (rounding rule, plain PyTorch)
+    decode(idx, levels)      -> values   (dequantization, a gather)
+
+plus ``quantize(flat, key)`` / ``dequantize(q)`` over the bucketed layout,
+``qdq`` (quantize∘dequantize), ``encode_wire`` / ``decode_wire`` (the
+uint32 packing) and ``wire_bytes``. The exchange's hot path does not call
+these: ``core/comm/wire.py`` runs the fused kernels, and its multi-pass
+path (``wire.encode_multipass``) calls ``assign`` for the deterministic
+schemes and ``decode`` for the per-worker decode.
 
 Schemes:
     fp          identity (no quantization)
@@ -21,11 +29,21 @@ Schemes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import buckets as B
 from repro_torch.core import clipping, encode, levels as L
+from repro_torch.core import rounding as R
+
+
+class QuantizedTensor(NamedTuple):
+    """Bucketed quantized payload for one flat tensor."""
+
+    idx: torch.Tensor      # (nb, d) int32 level indices (wire: bit-packed)
+    levels: torch.Tensor   # (nb, s) float32 level table  (wire: as-is)
+    n: int                 # original element count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +106,69 @@ class Quantizer:
         if m == "minmax2":
             return L.minmax_levels(bkt, mask)
         raise ValueError(f"unknown method {self.method!r}")
+
+    def assign(self, bkt: torch.Tensor, levels: torch.Tensor,
+               key: Optional[torch.Tensor],
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(nb, d) values + (nb, s) levels -> (nb, d) int32 indices. The
+        σ-clip sees the real bucket ``mask`` as ``fit`` does (None = every
+        slot valid); the random-round schemes draw their stream from
+        ``key`` on the values' device."""
+        if self.clip_c is not None:
+            if mask is None:
+                mask = torch.ones_like(bkt, dtype=torch.bool)
+            bkt = clipping.sigma_clip(bkt, mask, self.clip_c)
+        m = self.method
+        if m in ("orq", "terngrad", "qsgd", "linear", "minmax2",
+                 "bingrad_pb"):
+            bits = R.random_bits(key.to(bkt.device), bkt.shape)
+            return R.random_round(bkt, levels, bits)
+        if m == "bingrad_b":
+            b0 = 0.5 * (levels[:, :1] + levels[:, 1:2])  # Eq. (17): midpoint
+            return R.threshold_round(bkt, b0)
+        if m == "signsgd":
+            return R.threshold_round(
+                bkt, torch.zeros((bkt.shape[0], 1), device=bkt.device))
+        raise ValueError(f"unknown method {self.method!r}")
+
+    @staticmethod
+    def decode(idx: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+        return R.dequantize(idx, levels)
+
+    def quantize(self, flat: torch.Tensor,
+                 key: Optional[torch.Tensor]) -> QuantizedTensor:
+        bkt, mask = B.to_buckets(flat.reshape(-1), self.bucket_size)
+        lv = self.fit(bkt, mask)
+        idx = torch.where(mask, self.assign(bkt, lv, key, mask=mask), 0)
+        return QuantizedTensor(idx=idx, levels=lv, n=flat.numel())
+
+    def dequantize(self, q: QuantizedTensor) -> torch.Tensor:
+        return B.from_buckets(self.decode(q.idx, q.levels), q.n)
+
+    def qdq(self, flat: torch.Tensor,
+            key: Optional[torch.Tensor]) -> torch.Tensor:
+        """quantize -> dequantize, shape-preserving (single-machine Alg. 2)."""
+        if self.is_identity:
+            return flat
+        out = self.dequantize(self.quantize(flat.reshape(-1), key))
+        return out.reshape(flat.shape).to(flat.dtype)
+
+    def encode_wire(self, q: QuantizedTensor) -> torch.Tensor:
+        """(nb, d) indices -> (nb, nw) int32 words holding uint32 bits."""
+        return encode.pack(q.idx, self.wire_bits_per_element)
+
+    def decode_wire(self, words: torch.Tensor, levels: torch.Tensor,
+                    n: int) -> QuantizedTensor:
+        idx = encode.unpack(words, self.wire_bits_per_element,
+                            self.bucket_size)
+        return QuantizedTensor(idx=idx.to(torch.int32), levels=levels, n=n)
+
+    def wire_bytes(self, n_elems: int) -> float:
+        """Packed wire bytes for a tensor of n_elems (payload + level
+        tables)."""
+        nb = B.num_buckets(n_elems, self.bucket_size)
+        if self.is_identity:
+            return 4.0 * n_elems
+        words = encode.packed_words(self.bucket_size,
+                                    self.wire_bits_per_element)
+        return 4.0 * (nb * words + nb * self.s)

@@ -19,8 +19,9 @@
 // ms at 3.35 TB/s.
 //
 // Design: one block per bucket row, the row's level table (s <= 17) in
-// shared memory; both kernels share round_index, so their rounding
-// decisions are the same by construction. Each encode thread produces
+// shared memory; both kernels share round_index (round.cuh, also used by
+// multipass.cu's quant_rr), so their rounding decisions are the same by
+// construction. Each encode thread produces
 // whole output words: it rounds the
 // epw = 32 / bits elements of a word and shift-adds them in a register,
 // so no (nb, d) index tensor exists and the ragged tail word is zero-
@@ -32,48 +33,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "round.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 17;
+using repro::kBin;
+using repro::kMaxLevels;
+using repro::kRR;
+using repro::kSign;
+using repro::round_index;
+
 constexpr int kThreads = 128;
-
-enum Mode { kRR = 0, kBin = 1, kSign = 2 };
-
-// clip -> interval search -> round for one element x of a row whose level
-// table lv (ascending, s entries) sits in shared memory. L is the row's
-// clip limit (used when has_lim); rb the element's rounding word (mode rr).
-__device__ __forceinline__ uint32_t round_index(float x, const float* lv,
-                                                int s, int mode, bool has_lim,
-                                                float L, uint32_t rb) {
-  if (has_lim) x = fminf(L, fmaxf(-L, x));
-  if (mode == kRR) {
-    // Interval search fused with the neighbour-level selection: the
-    // table is ascending, so (x >= lv_j) is a prefix predicate.
-    int k = 0;
-    float lo = lv[0], hi = lv[1];
-    bool ge_prev = false;
-    for (int j = 0; j < s; ++j) {
-      const bool ge = x >= lv[j];
-      k += ge;
-      if (j >= 1 && j <= s - 2 && ge) lo = lv[j];
-      if (j >= 2 && ge_prev) hi = lv[j];
-      ge_prev = ge;
-    }
-    k = min(max(k - 1, 0), s - 2);
-    const float vc = fminf(fmaxf(x, lo), hi);
-    const float width = __fsub_rn(hi, lo);
-    const float p_up =
-        width > 0.0f ? __fdiv_rn(__fsub_rn(vc, lo), width) : 0.0f;
-    const float u = __fmul_rn(__uint2float_rn(rb),
-                              2.3283064365386963e-10f);  // 2^-32
-    return (uint32_t)k + (u < p_up ? 1u : 0u);
-  }
-  if (mode == kBin) {
-    const float thr = __fmul_rn(0.5f, __fadd_rn(lv[0], lv[1]));
-    return x >= thr ? 1u : 0u;
-  }
-  return x >= 0.0f ? 1u : 0u;
-}
 
 __global__ void encode_fused_kernel(const float* __restrict__ v,
                                     const float* __restrict__ levels,

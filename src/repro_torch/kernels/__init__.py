@@ -10,6 +10,10 @@
 #   fused_bingrad.py  encode_bingrad_fused: BinGrad-b's level fit +
 #                     threshold + 1-bit pack in one launch
 #   bingrad.py        bingrad_pass: conditional sums + assignment at b0
+#   quant_rr.py       quant_rr: interval search + random rounding (the
+#                     multi-pass round stage)
+#   bitpack.py        pack / unpack: indices <-> uint32 wire words
+#   dequant_avg.py    dequant_avg: level lookup + mean over workers
 #   build.py          nvcc build into build/repro_torch/ + ctypes binding
 #
 # Sources live in ../csrc/.

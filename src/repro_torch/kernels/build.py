@@ -4,7 +4,7 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``; no PyTorch
 header is compiled, so a build takes seconds. Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the
-source and flags, and are built at first use (or all at once, in
+source, the shared headers and the flags, and are built at first use (or all at once, in
 parallel, by :func:`build_all`). Nothing here runs at import time.
 
 Every C entry point returns the ``cudaError_t`` of ``cudaGetLastError()``
@@ -36,6 +36,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "decode_attend": ("decode_attend.cu", ()),
     "decode_fused": ("decode_fused.cu", ("-fmad=false",)),
     "encode_bingrad": ("encode_bingrad.cu", ("-fmad=false",)),
+    "multipass": ("multipass.cu", ("-fmad=false",)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,8 +56,13 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every shared
+    header (``csrc/*.cuh``, which a source may include) and the flags."""
     src = CSRC / SOURCES[name][0]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -8,10 +8,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import bingrad as _bin
+from repro_torch.kernels import bitpack as _pack
+from repro_torch.kernels import dequant_avg as _dqa
 from repro_torch.kernels import fused_bingrad as _fbin
 from repro_torch.kernels import fused_decode as _fdec
 from repro_torch.kernels import fused_encode as _fenc
 from repro_torch.kernels import fused_kv as _fkv
+from repro_torch.kernels import quant_rr as _qrr
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -84,3 +87,33 @@ def decode_attend(q, kw, klv, vw, vlv, mask, *, bits: int, kv_heads: int,
           else _fkv.decode_attend_plain)
     return fn(q, kw, klv, vw, vlv, mask, bits=bits, kv_heads=kv_heads,
               scale=scale, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# the multi-pass pipeline (wire.encode_multipass / decode_*_multipass)
+# ---------------------------------------------------------------------------
+
+def quant_rr(v, levels, bits):
+    """Interval search + unbiased random rounding: (nb, d) values + (nb, s)
+    levels + (nb, d) uint32 rounding words -> (nb, d) int32 indices."""
+    fn = _qrr.quant_rr_cuda if _on_cuda(v) else _qrr.quant_rr_plain
+    return fn(v, levels, bits)
+
+
+def pack(idx, bits: int):
+    """(nb, d) int32 indices -> (nb, ceil(d / (32 // bits))) int32 words."""
+    fn = _pack.pack_cuda if _on_cuda(idx) else _pack.pack_plain
+    return fn(idx, bits)
+
+
+def unpack(words, bits: int, d: int):
+    """(nb, nw) int32 words -> (nb, d) int32 indices."""
+    fn = _pack.unpack_cuda if _on_cuda(words) else _pack.unpack_plain
+    return fn(words, bits, d)
+
+
+def dequant_avg(idx, levels):
+    """Level lookup + mean over L workers: (L, nb, d) int32 indices + (L,
+    nb, s) levels -> (nb, d) f32."""
+    fn = _dqa.dequant_avg_cuda if _on_cuda(idx) else _dqa.dequant_avg_plain
+    return fn(idx, levels)

@@ -4,15 +4,18 @@
 ``encode_fused_ref`` / ``qdq_fused_ref`` are the multi-pass compositions
 (σ-clip, count-and-gather random round, mask, pack or decode as separate
 sweeps) that the one-pass kernels are held bit-identical against.
-``decode_fused_mean_ref`` / ``decode_fused_each_ref`` unpack and look the
-levels up; the mean accumulates ``out = fma(val, f32(1/L), out)`` worker
-by worker, l = 0..L-1: the Pallas kernel's ``out += val * (1.0 / L)``
-(``fused_decode.py:50-58``) in its order, with the multiply and the add
-rounded once, as XLA contracts them when the reference runs. So the port
-is exact for every L. (The reference's own jnp oracle sums, then scales,
-and agrees with its kernel only when L is a power of two:
-``wire.py:25-29``; for such L, and for L = 1, fma and a separate
-multiply and add agree, since the product is exact.)
+``dequant_avg_ref`` looks the levels up and averages over the workers:
+it accumulates ``out = fma(val, f32(1/L), out)`` worker by worker, l =
+0..L-1: the Pallas kernels' ``out += val * (1.0 / L)``
+(``dequant_avg.py:35``, ``fused_decode.py:50-58``) in their order, with
+the multiply and the add rounded once, as XLA contracts them when the
+reference runs. So the port is exact for every L. (The reference's own
+jnp oracle sums, then scales, and agrees with its kernels only when L is
+a power of two: ``wire.py:25-29``; for such L, and for L = 1, fma and a
+separate multiply and add agree, since the product is exact.)
+``decode_fused_mean_ref`` / ``decode_fused_each_ref`` unpack, then look
+up [and average] the same way; ``pack_ref`` / ``unpack_ref`` are the
+wire packing of ``core.encode``.
 ``encode_bingrad_fused_ref`` is BinGrad-b's whole encode as separate
 sweeps (σ-clip, the Eq. 17 level fit, threshold at the midpoint, pack);
 ``bingrad_pass_ref`` the conditional sums and the assignment at a given
@@ -117,11 +120,37 @@ def bingrad_pass_ref(v: torch.Tensor, b0: torch.Tensor, mask: torch.Tensor):
 
 
 def level_lookup(idx: torch.Tensor, lv: torch.Tensor) -> torch.Tensor:
-    """(..., d) int64 indices + (..., s) levels -> (..., d) f32 values; an
-    index >= s decodes to 0, as the reference's one-hot decode does."""
+    """(..., d) integer indices + (..., s) levels -> (..., d) f32 values;
+    an index outside [0, s) decodes to 0, as the reference's one-hot
+    decode does."""
     s = lv.shape[-1]
-    val = torch.gather(lv.to(torch.float32), -1, torch.clamp(idx, max=s - 1))
-    return torch.where(idx < s, val, 0.0)
+    idx = idx.to(torch.int64)
+    val = torch.gather(lv.to(torch.float32), -1, torch.clamp(idx, 0, s - 1))
+    return torch.where((idx >= 0) & (idx < s), val, 0.0)
+
+
+def dequant_avg_ref(idx: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """Oracle for ``dequant_avg.dequant_avg``: (L, nb, d) indices + (L, nb,
+    s) levels -> (nb, d) f32 mean, accumulated as ``out = fma(val, f32(1/L),
+    out)`` for l = 0..L-1 from +0."""
+    L = idx.shape[0]
+    out = torch.zeros(idx.shape[1:], dtype=torch.float32, device=idx.device)
+    inv = torch.full_like(out, 1.0 / L)
+    for l in range(L):
+        out = fma_f32(level_lookup(idx[l], levels[l]), inv, out)
+    return out
+
+
+def pack_ref(idx: torch.Tensor, bits: int) -> torch.Tensor:
+    """Oracle for ``bitpack.pack``: (nb, d) indices -> (nb, nw) int32
+    words."""
+    return encode.pack(idx, bits)
+
+
+def unpack_ref(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
+    """Oracle for ``bitpack.unpack``: (nb, nw) int32 words -> (nb, d) int64
+    indices."""
+    return encode.unpack(words, bits, d)
 
 
 def _unpack_stack(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
@@ -134,15 +163,7 @@ def decode_fused_mean_ref(words: torch.Tensor, levels: torch.Tensor, *,
                           d: int, bits: int) -> torch.Tensor:
     """(L, nb, nw) words + (L, nb, s) levels -> (nb, d) f32 mean,
     accumulated as ``out = fma(val, f32(1/L), out)`` for l = 0..L-1."""
-    L = words.shape[0]
-    vals = level_lookup(_unpack_stack(words, bits, d), levels)
-    inv = torch.full(vals.shape[1:], 1.0 / L, dtype=torch.float32,
-                     device=words.device)
-    out = torch.zeros(vals.shape[1:], dtype=torch.float32,
-                      device=words.device)
-    for l in range(L):
-        out = fma_f32(vals[l], inv, out)
-    return out
+    return dequant_avg_ref(_unpack_stack(words, bits, d), levels)
 
 
 def decode_fused_each_ref(words: torch.Tensor, levels: torch.Tensor, *,

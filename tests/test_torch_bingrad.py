@@ -274,13 +274,18 @@ def test_wire_encode_close_on_normal(name):
 
 
 def test_scheme_without_a_fused_mode_raises():
-    """A scheme with no fused mode takes the reference's multi-pass encode,
-    which is the next slice of the port."""
+    """A scheme with no fused mode takes the multi-pass encode and qdq,
+    which fit first: for a method with no fit both raise there, as the
+    reference's do (``test_torch_multipass.py`` holds the fallback of
+    every real scheme against the reference)."""
+    from repro.core.quantizers import Quantizer as JQuantizer
     v, mask = _data(4, 64, 0, "normal")
-    with pytest.raises(NotImplementedError, match="multi-pass"):
-        wire.encode(Quantizer(method="custom"), _t(v), _t(mask), None)
-    with pytest.raises(NotImplementedError, match="multi-pass"):
-        wire.qdq(Quantizer(method="custom"), _t(v), _t(mask), None)
+    for fn, jfn in ((wire.encode, jwire.encode), (wire.qdq, jwire.qdq)):
+        with pytest.raises(ValueError, match="unknown method"):
+            fn(Quantizer(method="custom"), _t(v), _t(mask), None)
+        with pytest.raises(ValueError, match="unknown method"):
+            jfn(JQuantizer(method="custom"), jnp.asarray(v),
+                jnp.asarray(mask), None)
 
 
 # ---------------------------------------------------------------------------

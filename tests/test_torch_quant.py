@@ -94,8 +94,9 @@ def test_static_descriptions_match():
 def test_unported_solvers_raise():
     """Every registered scheme's solver is ported now and fits as the
     reference does (``test_torch_levels.py`` holds each one closely); a
-    bad name still raises, and so does a scheme with no fused encode,
-    whose multi-pass path is not ported yet."""
+    bad name still raises, and a scheme with no fused encode takes the
+    multi-pass path, whose fit raises for an unknown method as the
+    reference's does."""
     v, mask, _ = _data(2, 16, 0)
     for name in ("terngrad", "bingrad-b", "signsgd"):
         got = make_quantizer(name).fit(_t(v), _t(mask)).numpy()
@@ -105,8 +106,12 @@ def test_unported_solvers_raise():
     with pytest.raises(ValueError, match="bad quantizer name"):
         make_quantizer("orq_9_x")
     from repro_torch.core.quantizers import Quantizer
-    with pytest.raises(NotImplementedError, match="multi-pass"):
+    from repro.core.quantizers import Quantizer as JQuantizer
+    with pytest.raises(ValueError, match="unknown method"):
         wire.encode(Quantizer(method="custom"), _t(v), _t(mask), None)
+    with pytest.raises(ValueError, match="unknown method"):
+        jwire.encode(JQuantizer(method="custom"), jnp.asarray(v),
+                     jnp.asarray(mask), None)
 
 
 # ---------------------------------------------------------------------------

@@ -285,10 +285,11 @@ def test_train_config_refuses_unported(world1):
                          ("signsgd", "signsgd")):
         pex = exchange_engine(model, TrainConfig(policy=name))
         assert [e.qz.method for e in pex.engines] == [method]
-    # a scheme with no fused encode takes the multi-pass path (not ported)
+    # a scheme with no fused encode takes the multi-pass path, whose fit
+    # refuses a method it does not know, as the reference's does
     from repro_torch.core.comm.exchange import GradientExchange
     from repro_torch.core.quantizers import Quantizer
-    with pytest.raises(NotImplementedError, match="multi-pass"):
+    with pytest.raises(ValueError, match="unknown method"):
         GradientExchange(Quantizer(method="custom")).exchange_flat(
             torch.zeros(8), prng.key(0))
 
