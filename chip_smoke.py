@@ -25,8 +25,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             kernels' own time from torch.profiler; beside the least time
             the card could take (bytes over 3.35 TB/s or float32
             operations over 67 TFLOP/s, the larger; for ``decode_attend``
-            only the positions the mask admits). The training kernels are
-            timed at the training path's shape (66,058 buckets of 2048).
+            only the positions the mask admits). ``decode_attend`` also
+            prints its context splits and the tiles its blocks walk (the
+            rest it skips), and is timed at the serving phase's positions
+            too. The training kernels are timed at the training path's
+            shape (66,058 buckets of 2048); both decodes at 4 and at 1 bit,
+            ``decode_fused_each`` also at L = 4.
 4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
@@ -153,15 +157,17 @@ def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
     the sum of the device times of every kernel ``fn`` launches. Each call
     launches the same kernels, so every kernel's event count is a multiple
     of ``calls`` unless the profiler lost events (seen on the card: one of
-    ten, now and then). Such a profile is taken again; if all ``attempts``
-    lose events, each kernel counts as its mean recorded duration times
-    its launches per call (the count rounded up to a multiple of
-    ``calls``), and the loss is reported. A profile with no kernel event
-    raises."""
+    ten, now and then; once, every event of a profile). Such a profile
+    is taken again; if all ``attempts`` lose events, each kernel of the
+    last profile that recorded any counts as its mean recorded duration
+    times its launches per call (the count rounded up to a multiple of
+    ``calls``), and the loss is reported. If no profile recorded a kernel
+    event, it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    kept = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
@@ -174,6 +180,8 @@ def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
             return sum(r[0] for r in rows) / calls / 1e3
         emit("profiler", lost_events={n[:60]: c for _, n, c in rows},
              calls=calls)
+        kept = rows or kept
+    rows = kept
     if not rows:
         raise AssertionError(f"the profiler recorded no kernel of {fn} in "
                              f"{attempts} profiles")
@@ -338,6 +346,9 @@ def check_attend(torch, dev):
         "gqa_h8_kv2": (4, 1, 8, 2, 64, 256, 0.0, None),
         "softcap50": (2, 4, 12, 12, 64, 512, 50.0, None),
         "fully_masked_row": (3, 1, 12, 12, 64, 512, 0.0, [-1, 100, 511]),
+        # the serving phase's decode positions: 128-160 of 512
+        "serve_positions": (8, 1, 12, 12, 64, 512, 0.0,
+                            [128, 132, 137, 141, 146, 150, 155, 160]),
     }
     results = {}
     for name, (B, T, H, KV, hd, C, cap, first) in cases.items():
@@ -372,9 +383,13 @@ def check_attend(torch, dev):
             lib_ms, lib_dev_ms = time_ms(lib), device_ms(lib)
         moved, ops = attend_work(torch, q, kw_, klv, mask, got)
         b_ms, b_by = bound(moved, ops)
+        walked = fk.walked_tiles(mask, H, KV)
         results[name] = dict(
             B=B, T=T, H=H, KV=KV, hd=hd, C=C, softcap=cap,
             admitted_share=float(mask.float().mean()),
+            splits=fk.split_count(B, T, H, KV, C),
+            tiles_walked=int(walked.sum()) * KV,
+            tiles_total=walked.numel() * KV,
             max_abs_err=err, finite=bool(torch.isfinite(got).all()),
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
             plain_device_ms=plain_dev_ms, library_device_ms=lib_dev_ms,
@@ -389,6 +404,10 @@ def check_attend(torch, dev):
 
 # training path's shape: lm-100m's 135,285,504 gradients in buckets of 2048
 TRAIN_NB, TRAIN_D = 66_058, 2048
+#: the decodes' timed shapes: tag -> (L, rows per worker, bits, levels)
+TRAIN_DECODE_SHAPES = {"bits4": (1, TRAIN_NB, 4, 9),
+                       "bits1": (1, TRAIN_NB, 1, 2),
+                       "L4": (4, 16_515, 4, 9)}
 
 
 def _train_shape_inputs(torch, dev, g):
@@ -418,7 +437,8 @@ def _mismatch(torch, got, want) -> int:
 def check_decode(torch, dev):
     """decode_fused_mean / _each against their plain versions (bit-equal by
     value) at L = 1, 3, 4, 4 bits, d 2048 with a ragged row, and at 1, 3
-    and 5 bits; then both timed at the training path's shape (L = 1)."""
+    and 5 bits; then both timed at the training path's shape (L = 1) at 4
+    and 1 bits, and the per-worker decode at L = 4."""
     from repro_torch.core import encode
     from repro_torch.kernels import fused_decode as fd
 
@@ -450,36 +470,47 @@ def check_decode(torch, dev):
             if mism:
                 raise AssertionError(f"{kname} {name}: {mism} values differ "
                                      f"from the plain version")
-    # the training path's shape: L = 1, 66,058 rows of 2048, 4 bits
-    words = _rand_words(torch, g, (1, TRAIN_NB, TRAIN_D // 8)).to(dev)
-    levels = torch.sort(torch.randn((1, TRAIN_NB, 9), generator=g)
-                        ).values.to(dev)
+    # the training path's shape: L = 1, 66,058 rows of 2048, at 4 bits
+    # (orq-9) and at 1 bit (BinGrad-b); the per-worker decode also at
+    # L = 4 (each worker's chunk of 16,515 rows)
     results = {}
-    for kname, plain, cuda in (
-            ("decode_fused_mean", fd.decode_fused_mean_plain,
-             fd.decode_fused_mean_cuda),
-            ("decode_fused_each", fd.decode_fused_each_plain,
-             fd.decode_fused_each_cuda)):
-        kern = lambda: cuda(words, levels, d=TRAIN_D, bits=4)
-        pl = lambda: plain(words, levels, d=TRAIN_D, bits=4)
-        got = kern()
-        mism = _mismatch(torch, got, pl())
-        ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
-            pl, reps=2, rounds=3)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
-        moved = nbytes(words, levels, got)
-        b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D))
-        results[kname] = dict(
-            shape=[1, TRAIN_NB, TRAIN_D], bits=4, s=9, mismatched=mism,
-            max_abs_err=worst[kname], ms=ms, plain_ms=plain_ms,
-            library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
-            bytes=moved, bound_ms=b_ms, bound_by=b_by)
-        emit("kernel", kernel=kname, case="train_main_shape",
-             **results[kname])
-        if mism:
-            raise AssertionError(f"{kname} at the training shape: {mism} "
-                                 f"values differ from the plain version")
-        del got
+    for tag, (L, nb, bits, s) in TRAIN_DECODE_SHAPES.items():
+        words = _rand_words(
+            torch, g, (L, nb, encode.packed_words(TRAIN_D, bits))).to(dev)
+        levels = torch.sort(torch.randn((L, nb, s), generator=g)
+                            ).values.to(dev)
+        for kname, plain, cuda in (
+                ("decode_fused_mean", fd.decode_fused_mean_plain,
+                 fd.decode_fused_mean_cuda),
+                ("decode_fused_each", fd.decode_fused_each_plain,
+                 fd.decode_fused_each_cuda)):
+            if L > 1 and kname == "decode_fused_mean":
+                continue
+            kern = lambda: cuda(words, levels, d=TRAIN_D, bits=bits)
+            pl = lambda: plain(words, levels, d=TRAIN_D, bits=bits)
+            got = kern()
+            mism = _mismatch(torch, got, pl())
+            ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
+                pl, reps=2, rounds=3)
+            dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
+            moved = nbytes(words, levels, got)
+            b_ms, b_by = bound(moved, float(L * nb * TRAIN_D))
+            key = kname if tag == "bits4" else f"{kname}/{tag}"
+            results[key] = dict(
+                shape=[L, nb, TRAIN_D], bits=bits, s=s, mismatched=mism,
+                max_abs_err=worst[kname], ms=ms, plain_ms=plain_ms,
+                library_ms=None, device_ms=dev_ms,
+                plain_device_ms=plain_dev_ms, bytes=moved, bound_ms=b_ms,
+                bound_by=b_by)
+            emit("kernel", kernel=kname, case="train_main_shape" + (
+                "" if tag == "bits4" else f"_{tag}"),
+                 **results[key])
+            if mism:
+                raise AssertionError(f"{kname} at the training shape "
+                                     f"({tag}): {mism} values differ from "
+                                     f"the plain version")
+            del got
+        del words, levels
     return results
 
 
@@ -1537,14 +1568,19 @@ def main() -> int:
             "src/repro/kernels/fused_encode.py:255", e,
             train_shape=shape_of(enc["train_main_shape"])),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
-            "src/repro/kernels/fused_kv.py:70", a),
+            "src/repro/kernels/fused_kv.py:70", a,
+            prefill_t64=shape_of(att["prefill_t64"]),
+            serve_positions=shape_of(att["serve_positions"])),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
             "src/repro/kernels/fused_encode.py:283", qdq),
         row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
-            "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"]),
+            "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"],
+            bits1=shape_of(dec["decode_fused_mean/bits1"])),
         row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:107",
-            dec["decode_fused_each"]),
+            dec["decode_fused_each"],
+            bits1=shape_of(dec["decode_fused_each/bits1"]),
+            L4=shape_of(dec["decode_fused_each/L4"])),
         row("encode_bingrad_fused", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/fused_bingrad.py:102",
             bgr["train_main_shape"], kv_shape=shape_of(bgr["kv_rows16"])),

@@ -12,145 +12,386 @@
 // a fully masked row averages the C positions uniformly, as the
 // reference's softmax does.
 //
-// What bounds it on an H100: bytes. Each sequence's packed context is
-// read once per KV head group; at decode (B 8, C 512, d 768, 4-bit words)
-// K and V words and tables of a full context are ~3.4 MB a layer, about
-// 1 us at 3.35 TB/s, while the f32 arithmetic is ~13 MFLOP. A masked
-// position adds exactly 0, so the function needs only the rows up to each
-// sequence's last admitted position; this kernel still walks every tile.
+// What bounds it on an H100: bytes, and below them the latency of a few
+// dependent loads. At decode (B 8, C 512, d 768, 4-bit words) the K and V
+// words and tables of the admitted positions are ~1.8 MB a layer, about
+// 0.55 us at 3.35 TB/s; the f32 arithmetic is ~13 MFLOP. A masked position
+// adds exactly 0 (its weight exp(-2e38 - m) is 0 in f32 once m is a real
+// score, and a masked-only prefix is scaled by corr = 0), so only tiles
+// that some row admits need any work.
 //
 // Design: the TPU kernel decodes a sequence's whole context into VMEM; at
 // C = 512, d = 768 that is 1.5 MB each for K and V, far over the 227 KB of
-// shared memory. Here the grid is (sequence, KV head, query tile); a block
-// walks the context in tiles of 32 tokens, unpacks and level-decodes the
-// tile's K and V slices for its KV head into shared memory, and each warp
-// carries one query row (t, head) with a streaming (online) softmax in
-// f32: lane l scores token l of the tile, the running max / sum rescale
-// the accumulator, and lane l owns output dims l, l + 32, ... Dequantized
-// values never touch device memory. Simple first: no tensor cores, no
-// TMA, and every query tile of a (sequence, KV head) decodes the context
-// again.
+// shared memory. Here a block takes up to kRows query rows (t, head) of
+// one (sequence, KV head) and one of S contiguous splits of the context's
+// 32-token tiles; the S blocks of a (sequence, KV head, row group) form a
+// thread-block cluster (flash-decoding in one launch).
+//   1. Skip. The block first scans its rows' masks: the first and last
+//      admitted position bound its tiles, and a tile that none of its
+//      rows admits (a warp ballot over the tile's mask bytes) is skipped.
+//      A block with a fully masked row walks every tile, since that row
+//      averages all C positions.
+//   2. Warps take the split's tiles in turn (tile lo + warp, + kWarps, ...)
+//      and each carries every row of the block, so no warp idles at
+//      T·g < 4. At these sizes the kernel is a chain of latencies, so a
+//      tile costs one round trip to memory: lane c loads token c's K and
+//      V words of the head slice and its two level tables into the warp's
+//      shared memory together with the tile's mask bytes, then decodes its
+//      K row on the fly into each row's score (a streaming (online)
+//      softmax in f32), and lane l accumulates output dims l, l + 32, ...
+//      from the V words over the tile's positions. BITS is a template
+//      parameter and both loops are unrolled, so element e's word and
+//      shift are fixed at compile time and the lookups overlap. No block
+//      barrier inside the loop; dequantized values never touch device
+//      memory.
+//   3. Merge. Each warp's (m, l, acc) per row goes to shared memory and is
+//      merged within the block; the S blocks' partials are then merged
+//      through distributed shared memory (m* = max m_i, l* = sum l_i
+//      e^(m_i - m*), out = sum acc_i e^(m_i - m*) / l*), each block
+//      writing a slice of the rows' outputs.
+// S is the caller's (fused_kv.split_count: enough blocks to fill the card,
+// at most 8, the portable cluster size). Simple still: no tensor cores (the
+// decode shape has too few rows), no TMA.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kTile = 32;      // context tokens per tile (= warp width)
-constexpr int kWarps = 4;      // query rows per block
+constexpr int kWarps = 4;      // warps per block
+constexpr int kRows = 4;       // query rows per block
 constexpr int kMaxLevels = 17;
+constexpr int kMaxSplits = 8;  // portable cluster size
 constexpr float kMasked = -2.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
+// Dynamic shared memory of one block, in 4-byte units: the rows' queries,
+// then per warp its tile's K and V words (token c's head slice at c * kWs,
+// kWs odd so that lanes' rows fall in distinct banks) and level tables
+// (token c's at c * kMaxLevels), then the block's merged partial (m[kRows],
+// l[kRows], acc[kRows][HD]). After the loop a warp's words hold its own
+// partial in the same layout.
 template <int HD>
-__global__ void decode_attend_kernel(
+struct Smem {
+  // words of one token's head slice at most: hd elements at 5 bits (6 a
+  // word), not aligned to a word
+  static constexpr int kSlice = (HD - 1) / 6 + 2;
+  static constexpr int kWs = kSlice | 1;
+  static constexpr int kQ = kRows * HD;
+  static constexpr int kWords = kTile * kWs;
+  static constexpr int kLv = kTile * kMaxLevels;
+  static constexpr int kWarp = 2 * kWords + 2 * kLv;
+  static constexpr int kPart = 2 * kRows + kRows * HD;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQ + kWarps * kWarp + kPart);
+  static_assert(kPart <= kWarp, "a warp's partial must fit its tile");
+  static_assert(kBytes <= 48 * 1024, "dynamic shared memory over the "
+                "default limit needs cudaFuncSetAttribute");
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Weight of a partial with running max mi against the merged max mx; a
+// partial that saw no tile has mi = -inf and weighs 0.
+__device__ __forceinline__ float rescale(float mi, float mx) {
+  return mi == -INFINITY ? 0.0f : expf(mi - mx);
+}
+
+template <int HD, int BITS>
+__global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
     const float* __restrict__ q, const uint32_t* __restrict__ kw,
     const float* __restrict__ klv, const uint32_t* __restrict__ vw,
     const float* __restrict__ vlv, const uint8_t* __restrict__ mask,
     float* __restrict__ out, int T, int H, int KV, int C, int nw, int s,
-    int bits, float scale, float softcap) {
+    float scale, float softcap, int S) {
   constexpr int kPerLane = HD / 32;
-  __shared__ float ks[kTile][HD + 1];  // +1: lanes read rows, no conflicts
-  __shared__ float vs[kTile][HD];
-  __shared__ float qs[kWarps][HD];
-  __shared__ float lk[kTile][kMaxLevels];
-  __shared__ float lvv[kTile][kMaxLevels];
+  constexpr int kEpw = 32 / BITS;  // indices a word
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  // fully unrolled runs of the score and PV loops (shorter at hd 128, so
+  // that registers do not spill)
+  constexpr int kDotRun = HD < 64 ? HD : 64;
+  constexpr int kPvRun = HD > 64 ? 8 : kTile;
+  using L = Smem<HD>;
+  constexpr int kWs = L::kWs;
+  extern __shared__ float smem[];
+  __shared__ int s_first, s_last;
 
-  const int b = blockIdx.x, kvh = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x % S;  // = cluster.block_rank()
+  const int r0 = (blockIdx.x / S) * kRows;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int g = H / KV;
+  const int na = min(kRows, T * g - r0);  // active rows of this block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = blockIdx.z * kWarps + warp;  // query row (t, head in group)
-  const bool active = r < T * g;
-  const int t = active ? r / g : 0;
-  const int h = kvh * g + (active ? r % g : 0);
-  const size_t qoff = (((size_t)b * T + t) * H + h) * HD;
-  if (active)
-    for (int j = lane; j < HD; j += 32) qs[warp][j] = q[qoff + j];
 
-  const int epw = 32 / bits;
-  const uint32_t cmask = (1u << bits) - 1u;
-  const size_t ctx = (size_t)b * C;  // first context row of sequence b
-  const uint8_t* mrow = mask + ((size_t)b * T + t) * C;
+  float* qs = smem;
+  float* wbase = smem + L::kQ + warp * L::kWarp;
+  uint32_t* kst = reinterpret_cast<uint32_t*>(wbase);  // [kTile][kWs]
+  uint32_t* vst = kst + L::kWords;
+  float* lk = wbase + 2 * L::kWords;  // [kTile][kMaxLevels]
+  float* lv = lk + L::kLv;
+  float* part = smem + L::kQ + kWarps * L::kWarp;
 
-  float m = -INFINITY, l = 0.0f;
-  float acc[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) acc[k] = 0.0f;
-
-  for (int c0 = 0; c0 < C; c0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kTile * s; i += blockDim.x) {
-      const int c = i / s, j = i % s;
-      const bool in = c0 + c < C;
-      lk[c][j] = in ? klv[(ctx + c0 + c) * s + j] : 0.0f;
-      lvv[c][j] = in ? vlv[(ctx + c0 + c) * s + j] : 0.0f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
-      const int c = i / HD, j = i % HD;
-      float kval = 0.0f, vval = 0.0f;
-      if (c0 + c < C) {
-        const int e = kvh * HD + j;  // element of the token's d-row
-        const size_t wi = (ctx + c0 + c) * nw + e / epw;
-        const int sh = bits * (e % epw);
-        const uint32_t kc = (kw[wi] >> sh) & cmask;
-        const uint32_t vc = (vw[wi] >> sh) & cmask;
-        kval = kc < (uint32_t)s ? lk[c][kc] : 0.0f;
-        vval = vc < (uint32_t)s ? lvv[c][vc] : 0.0f;
+  if (threadIdx.x == 0) {
+    s_first = C;
+    s_last = -1;
+  }
+  for (int i = threadIdx.x; i < na * HD; i += blockDim.x) {
+    const int rr = i / HD, r = r0 + rr;
+    qs[i] = q[(((size_t)b * T + r / g) * H + kvh * g + r % g) * HD + i % HD];
+  }
+  const size_t mrow0 = (size_t)b * T;  // mask row of (b, t): mrow0 + t
+  // 1. the rows' admitted span, and whether some row admits nothing
+  bool any_empty = false;
+  int first = C, last = -1;
+  for (int rr = 0; rr < na; ++rr) {
+    const int t = (r0 + rr) / g;
+    if (rr > 0 && t == (r0 + rr - 1) / g) continue;  // same mask row
+    const uint8_t* mr = mask + (mrow0 + t) * C;
+    bool seen = false;
+#pragma unroll 4
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      if (mr[c]) {
+        seen = true;
+        first = min(first, c);
+        last = max(last, c);
       }
-      ks[c][j] = kval;
-      vs[c][j] = vval;
     }
-    __syncthreads();
-    if (!active) continue;
+    if (!__syncthreads_or(seen)) any_empty = true;  // uniform in the block
+  }
+  if (first < C) atomicMin(&s_first, first);
+  if (last >= 0) atomicMax(&s_last, last);
+  __syncthreads();
 
-    const int cc = c0 + lane;
-    float sc = -INFINITY;  // past the context end: excluded entirely
-    if (cc < C) {
-      float dot = 0.0f;
-#pragma unroll 16
-      for (int j = 0; j < HD; ++j) dot += qs[warp][j] * ks[lane][j];
-      sc = dot * scale;
-      if (softcap != 0.0f) sc = tanhf(sc / softcap) * softcap;
-      if (!mrow[cc]) sc = kMasked;
-    }
-    float tmax = sc;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m, tmax);  // finite: lane 0 is in range
-    const float p = cc < C ? expf(sc - m_new) : 0.0f;
-    const float corr = expf(m - m_new);  // 0 on the first tile
-    float psum = p;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * corr + psum;
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) acc[k] *= corr;
-    for (int c = 0; c < kTile; ++c) {
-      const float pc = __shfl_sync(0xffffffffu, p, c);
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) acc[k] += pc * vs[c][lane + 32 * k];
-    }
-    m = m_new;
+  const int n_tiles = (C + kTile - 1) / kTile;
+  const int per = (n_tiles + S - 1) / S;
+  int lo = split * per, hi = min(n_tiles, lo + per);
+  if (!any_empty) {
+    lo = max(lo, s_first / kTile);
+    hi = min(hi, s_last / kTile + 1);
   }
-  if (active) {
+
+  const size_t ctx = (size_t)b * C;  // first context row of sequence b
+  const uint8_t* mrow[kRows];
+  const int w0 = kvh * HD / kEpw;  // the head slice's first word
+  const int nwh = (kvh * HD + HD - 1) / kEpw - w0 + 1;
+  // the slice's first element's lane in word w0: 0 unless 3 or 5 bits
+  const int at0 = (kEpw & (kEpw - 1)) == 0 ? 0 : kvh * HD % kEpw;
+  int wo[kPerLane], sh[kPerLane];  // this lane's dims: slice word, shift
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) out[qoff + lane + 32 * k] = acc[k] / l;
+  for (int rr = 0; rr < kRows; ++rr)
+    mrow[rr] = mask + (mrow0 + (r0 + min(rr, na - 1)) / g) * C;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int e = kvh * HD + lane + 32 * k;
+    wo[k] = e / kEpw - w0;
+    sh[k] = BITS * (e % kEpw);
   }
+  float m[kRows], l[kRows], acc[kRows][kPerLane];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    m[rr] = -INFINITY;
+    l[rr] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) acc[rr][k] = 0.0f;
+  }
+
+  // 2. this warp's tiles of the split
+  for (int tile = lo + warp; tile < hi; tile += kWarps) {
+    const int c0 = tile * kTile, cc = c0 + lane;
+    const bool in = cc < C;  // past the context end: excluded entirely
+    // lane c loads token c's words and levels with the tile's mask bytes:
+    // one round trip (a skipped tile wastes only its loads)
+    if (in) {
+      const size_t row = ctx + cc;
+      const uint32_t* kr = kw + row * nw + w0;
+      const uint32_t* vr = vw + row * nw + w0;
+#pragma unroll
+      for (int w = 0; w < L::kSlice; ++w) {
+        if (w < nwh) {
+          kst[lane * kWs + w] = kr[w];
+          vst[lane * kWs + w] = vr[w];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxLevels; ++j) {
+        if (j < s) {
+          lk[lane * kMaxLevels + j] = klv[row * s + j];
+          lv[lane * kMaxLevels + j] = vlv[row * s + j];
+        }
+      }
+    }
+    bool adm[kRows];
+    bool any = false;
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      adm[rr] = rr < na && in && mrow[rr][cc];
+      any |= adm[rr];
+    }
+    if (!any_empty && !__any_sync(kFull, any)) continue;
+    __syncwarp();
+
+    float dot[kRows];  // lane c: its token's K row, decoded on the fly
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) dot[rr] = 0.0f;
+    if (in) {
+      const uint32_t* kr = kst + lane * kWs;
+      const float* lt = lk + lane * kMaxLevels;
+#pragma unroll 1
+      for (int j0 = 0; j0 < HD; j0 += kDotRun) {
+#pragma unroll
+        for (int jj = 0; jj < kDotRun; ++jj) {
+          const int j = j0 + jj, e = at0 + j;
+          const uint32_t kc = (kr[e / kEpw] >> (BITS * (e % kEpw))) & kMask;
+          const float kval = kc < (uint32_t)s ? lt[kc] : 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < kRows; ++rr)
+            if (rr < na) dot[rr] += qs[rr * HD + j] * kval;
+        }
+      }
+    }
+    float p[kRows];
+    unsigned live = 0;  // positions that some row weighs
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      p[rr] = 0.0f;
+      if (rr >= na) continue;
+      float sc = -INFINITY;
+      if (in) {
+        sc = dot[rr] * scale;
+        if (softcap != 0.0f) sc = tanhf(sc / softcap) * softcap;
+        if (!adm[rr]) sc = kMasked;
+      }
+      const float m_new = fmaxf(m[rr], warp_max(sc));  // lane 0 is in range
+      p[rr] = in ? expf(sc - m_new) : 0.0f;
+      const float corr = expf(m[rr] - m_new);  // 0 on the first tile
+      l[rr] = l[rr] * corr + warp_sum(p[rr]);
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) acc[rr][k] *= corr;
+      m[rr] = m_new;
+      live |= __ballot_sync(kFull, p[rr] != 0.0f);
+    }
+    // every position in turn, unrolled: one some row weighs adds p * v,
+    // any other (its words maybe never loaded) adds exactly 0
+#pragma unroll 1
+    for (int c0v = 0; c0v < kTile; c0v += kPvRun) {
+#pragma unroll
+    for (int cv = 0; cv < kPvRun; ++cv) {
+      const int c = c0v + cv;
+      const bool w = (live >> c) & 1u;
+      float pc[kRows];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+        pc[rr] = __shfl_sync(kFull, p[rr], c);
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const uint32_t vc = (vst[c * kWs + wo[k]] >> sh[k]) & kMask;
+        const float val =
+            w && vc < (uint32_t)s ? lv[c * kMaxLevels + vc] : 0.0f;
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr)
+          if (rr < na) acc[rr][k] += pc[rr] * val;
+      }
+    }
+    }
+    __syncwarp();  // the next tile overwrites this one's tables
+  }
+
+  // 3a. merge the warps' partials within the block
+  float* wp = wbase;  // this warp's partial, over its tile
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      wp[rr] = m[rr];
+      wp[kRows + rr] = l[rr];
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (rr >= na) continue;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k)
+      wp[2 * kRows + rr * HD + lane + 32 * k] = acc[rr][k];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < na * HD; i += blockDim.x) {
+    const int rr = i / HD;
+    float mx = -INFINITY;
+    for (int w = 0; w < kWarps; ++w)
+      mx = fmaxf(mx, smem[L::kQ + w * L::kWarp + rr]);
+    float ls = 0.0f, as = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* pw = smem + L::kQ + w * L::kWarp;
+      const float f = rescale(pw[rr], mx);
+      ls += pw[kRows + rr] * f;
+      as += pw[2 * kRows + i] * f;
+    }
+    part[2 * kRows + i] = as;
+    if (i % HD == 0) {
+      part[rr] = mx;
+      part[kRows + rr] = ls;
+    }
+  }
+  // 3b. merge the S splits through distributed shared memory; block
+  // `split` writes elements split * blockDim + tid, + S * blockDim, ...
+  cluster.sync();
+  for (int i = split * blockDim.x + threadIdx.x; i < na * HD;
+       i += S * blockDim.x) {
+    const int rr = i / HD, r = r0 + rr;
+    float mx = -INFINITY;
+    for (int x = 0; x < S; ++x)
+      mx = fmaxf(mx, cluster.map_shared_rank(part, x)[rr]);
+    float ls = 0.0f, as = 0.0f;
+    for (int x = 0; x < S; ++x) {
+      const float* px = cluster.map_shared_rank(part, x);
+      const float f = rescale(px[rr], mx);
+      ls += px[kRows + rr] * f;
+      as += px[2 * kRows + i] * f;
+    }
+    out[(((size_t)b * T + r / g) * H + kvh * g + r % g) * HD + i % HD] =
+        as / ls;
+  }
+  cluster.sync();  // keep this block's partial alive until all have read
 }
 
-template <int HD>
+template <int HD, int BITS>
 int launch(const void* q, const void* kw, const void* klv, const void* vw,
            const void* vlv, const void* mask, void* out, int B, int T, int H,
-           int KV, int C, int nw, int s, int bits, float scale, float softcap,
+           int KV, int C, int nw, int s, float scale, float softcap, int S,
            cudaStream_t stream) {
-  const int rows = T * (H / KV);
-  dim3 grid(B, KV, (rows + kWarps - 1) / kWarps);
-  decode_attend_kernel<HD><<<grid, kWarps * 32, 0, stream>>>(
-      (const float*)q, (const uint32_t*)kw, (const float*)klv,
-      (const uint32_t*)vw, (const float*)vlv, (const uint8_t*)mask,
-      (float*)out, T, H, KV, C, nw, s, bits, scale, softcap);
+  const int groups = (T * (H / KV) + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * S, KV, B);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = Smem<HD>::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_attend_kernel<HD, BITS>, (const float*)q,
+      (const uint32_t*)kw, (const float*)klv, (const uint32_t*)vw,
+      (const float*)vlv, (const uint8_t*)mask, (float*)out, T, H, KV, C, nw,
+      s, scale, softcap, S);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -158,31 +399,41 @@ int launch(const void* q, const void* kw, const void* klv, const void* vw,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// shapes the kernel does not take: hd must be 32, 64 or 128).
+// S: context splits per (sequence, KV head, row group), the cluster size,
+// 1..8. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for shapes the kernel does not take: hd must be 32, 64 or 128).
 int repro_decode_attend(const void* q, const void* kw, const void* klv,
                         const void* vw, const void* vlv, const void* mask,
                         void* out, int B, int T, int H, int KV, int hd, int C,
                         int nw, int s, int bits, float scale, float softcap,
-                        void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || KV <= 0 || H % KV != 0 || s < 1 ||
-      s > kMaxLevels || bits < 1 || bits > 5 ||
+                        int S, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || C <= 0 || KV <= 0 || KV > 65535 ||
+      H % KV != 0 || s < 1 || s > kMaxLevels || bits < 1 || bits > 5 ||
+      S < 1 || S > kMaxSplits ||
+      (long long)((T * (long long)(H / KV) + kRows - 1) / kRows) * S >
+          0x7fffffffLL ||
       (long long)nw * (32 / bits) < (long long)KV * hd)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch<32>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, C, nw,
-                        s, bits, scale, softcap, st);
-    case 64:
-      return launch<64>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, C, nw,
-                        s, bits, scale, softcap, st);
-    case 128:
-      return launch<128>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, C, nw,
-                         s, bits, scale, softcap, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+#define REPRO_ATTEND(HD, BITS)                                              \
+  launch<HD, BITS>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, C, nw, s, \
+                   scale, softcap, S, st)
+#define REPRO_ATTEND_BITS(HD)          \
+  switch (bits) {                      \
+    case 1: return REPRO_ATTEND(HD, 1); \
+    case 2: return REPRO_ATTEND(HD, 2); \
+    case 3: return REPRO_ATTEND(HD, 3); \
+    case 4: return REPRO_ATTEND(HD, 4); \
+    default: return REPRO_ATTEND(HD, 5); \
   }
+  switch (hd) {
+    case 32: REPRO_ATTEND_BITS(32)
+    case 64: REPRO_ATTEND_BITS(64)
+    case 128: REPRO_ATTEND_BITS(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_ATTEND_BITS
+#undef REPRO_ATTEND
 }
 
 const char* repro_error_string(int code) {

@@ -11,16 +11,29 @@
 // of nw packed words and L level tables and writes d floats; at the
 // training path's shape (L = 1, nb = 66,058, d = 2048, 4 bits) that is
 // 67.6 MB of words + 2.4 MB of levels read and 541 MB written, ~0.18 ms
-// at 3.35 TB/s. The f32 output dominates: it is 8x the packed input.
+// at 3.35 TB/s. The f32 output dominates: it is 8x the packed input (32x
+// at 1 bit), so the stores decide the time.
 //
-// Design: one block per bucket row (the mean) or per (row, worker) (each).
-// The row's level tables sit in shared memory. Each thread takes whole
-// words: it shifts the epw = 32 / BITS indices of a word out of one
-// register (BITS is a template parameter, so the lanes unroll), looks
-// each up in the table and writes epw consecutive floats. The (L, nb, d)
-// index tensor of the multi-pass path never exists. Shifts are logical:
-// the int32 storage is read as uint32_t. At 3 and 5 bits the top 2 bits
-// of each word are unused; a ragged row's tail lanes are not written.
+// Design of the mean: one block per bucket row, the row's level tables in
+// shared memory; each thread takes whole words: it shifts the epw = 32 /
+// BITS indices of a word out of one register (BITS is a template
+// parameter, so the lanes unroll), looks each up and writes epw
+// consecutive floats (a store stride of 32 bytes at 4 bits).
+//
+// Design of the per-worker decode: the (L, nb) rows are one run of L * nb
+// rows; a block takes kEachRows of them, with their level tables in shared
+// memory, and its threads walk the block's (row, quad) pairs: thread i
+// writes the 4 consecutive floats of one quad with one 16-byte store, so a
+// warp stores 512 contiguous bytes. A thread reads the word that holds its
+// 4 indices (two words where 3- and 5-bit words split a quad); neighbouring
+// threads share a word through L1. A row whose start is not 16-byte
+// aligned, and the tail of a row whose d is not a multiple of 4, are
+// stored by the same threads with scalar stores.
+//
+// Both: the (L, nb, d) index tensor of the multi-pass path never exists.
+// Shifts are logical: the int32 storage is read as uint32_t. At 3 and 5
+// bits the top 2 bits of each word are unused; a ragged row's tail lanes
+// are not written.
 //
 // Exactness: an index >= s decodes to 0, like the reference's one-hot
 // sum, which equals the table entry by value (only a zero's sign can
@@ -35,7 +48,9 @@
 namespace {
 
 constexpr int kMaxLevels = 17;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // the mean: threads per row
+constexpr int kEachThreads = 256;  // the per-worker decode: threads, and
+constexpr int kEachRows = 8;       // rows per block
 
 template <int BITS>
 __global__ void decode_mean_kernel(const uint32_t* __restrict__ words,
@@ -75,25 +90,49 @@ __global__ void decode_mean_kernel(const uint32_t* __restrict__ words,
 }
 
 template <int BITS>
-__global__ void decode_each_kernel(const uint32_t* __restrict__ words,
-                                   const float* __restrict__ levels,
-                                   float* __restrict__ out, int nb, int nw,
-                                   int d, int s) {
-  __shared__ float lv[kMaxLevels];
-  const size_t r = (size_t)blockIdx.y * nb + blockIdx.x;  // (worker, row)
-  if (threadIdx.x < s) lv[threadIdx.x] = levels[r * s + threadIdx.x];
+__global__ void __launch_bounds__(kEachThreads) decode_each_kernel(
+    const uint32_t* __restrict__ words, const float* __restrict__ levels,
+    float* __restrict__ out, int R, int nw, int d, int s) {
+  __shared__ float lv[kEachRows * kMaxLevels];  // the rows' level tables
+  const int r0 = blockIdx.x * kEachRows;
+  const int nr = min(kEachRows, R - r0);
+  for (int i = threadIdx.x; i < nr * s; i += blockDim.x) {
+    const int rr = i / s;
+    lv[rr * kMaxLevels + (i - rr * s)] = levels[(size_t)r0 * s + i];
+  }
   __syncthreads();
 
   constexpr int kEpw = 32 / BITS;
   constexpr uint32_t kMask = (1u << BITS) - 1u;
-  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
-    const uint32_t word = words[r * nw + w];
-    float* o = out + r * d + (size_t)w * kEpw;
-    const int n = d - w * kEpw;
+  constexpr bool kOneWord = kEpw % 4 == 0;  // a quad never splits a word
+  const int nq = (d + 3) / 4;               // quads per row
+  for (int i = threadIdx.x; i < nr * nq; i += blockDim.x) {
+    const int rr = i / nq, e0 = 4 * (i - rr * nq);
+    const size_t r = (size_t)(r0 + rr);
+    const uint32_t* w = words + r * nw;
+    const float* t = lv + rr * kMaxLevels;
+    const int wa = e0 / kEpw;
+    const uint32_t a = w[wa];
+    uint32_t b = a;
+    if (!kOneWord) {
+      const int wb = min((e0 + 3) / kEpw, nw - 1);
+      if (wb != wa) b = w[wb];
+    }
+    float v[4];
 #pragma unroll
-    for (int e = 0; e < kEpw; ++e) {
-      const uint32_t idx = (word >> (BITS * e)) & kMask;
-      if (e < n) o[e] = idx < (uint32_t)s ? lv[idx] : 0.0f;
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u;
+      const uint32_t word = (kOneWord || e / kEpw == wa) ? a : b;
+      const uint32_t idx = (word >> (BITS * (e % kEpw))) & kMask;
+      v[u] = idx < (uint32_t)s ? t[idx] : 0.0f;
+    }
+    float* o = out + r * d + e0;
+    if (e0 + 4 <= d && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (e0 + u < d) o[u] = v[u];
     }
   }
 }
@@ -116,10 +155,10 @@ cudaError_t launch_mean(const uint32_t* w, const float* lv, float* out,
 
 template <int BITS>
 cudaError_t launch_each(const uint32_t* w, const float* lv, float* out,
-                        int L, int nb, int nw, int d, int s,
-                        cudaStream_t stream) {
-  decode_each_kernel<BITS><<<dim3(nb, L), kThreads, 0, stream>>>(
-      w, lv, out, nb, nw, d, s);
+                        int R, int nw, int d, int s, cudaStream_t stream) {
+  decode_each_kernel<BITS>
+      <<<(R + kEachRows - 1) / kEachRows, kEachThreads, 0, stream>>>(
+          w, lv, out, R, nw, d, s);
   return cudaGetLastError();
 }
 
@@ -153,22 +192,23 @@ int repro_decode_fused_mean(const void* words, const void* levels, void* out,
 }
 
 // words: (L, nb, nw) uint32; levels: (L, nb, s) float32; out: (L, nb, d)
-// float32. Returns cudaGetLastError().
+// float32. L * nb must fit an int. Returns cudaGetLastError().
 int repro_decode_fused_each(const void* words, const void* levels, void* out,
                             int L, int nb, int nw, int d, int s, int bits,
                             void* stream) {
-  if (bad_args(L, nb, nw, d, s, bits) || L > 65535)
+  if (bad_args(L, nb, nw, d, s, bits) || (long long)L * nb > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const int R = L * nb;
   const uint32_t* w = (const uint32_t*)words;
   const float* lv = (const float*)levels;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (bits) {
-    case 1: return (int)launch_each<1>(w, lv, o, L, nb, nw, d, s, st);
-    case 2: return (int)launch_each<2>(w, lv, o, L, nb, nw, d, s, st);
-    case 3: return (int)launch_each<3>(w, lv, o, L, nb, nw, d, s, st);
-    case 4: return (int)launch_each<4>(w, lv, o, L, nb, nw, d, s, st);
-    default: return (int)launch_each<5>(w, lv, o, L, nb, nw, d, s, st);
+    case 1: return (int)launch_each<1>(w, lv, o, R, nw, d, s, st);
+    case 2: return (int)launch_each<2>(w, lv, o, R, nw, d, s, st);
+    case 3: return (int)launch_each<3>(w, lv, o, R, nw, d, s, st);
+    case 4: return (int)launch_each<4>(w, lv, o, R, nw, d, s, st);
+    default: return (int)launch_each<5>(w, lv, o, R, nw, d, s, st);
   }
 }
 

@@ -21,10 +21,59 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 #: repro_decode_attend(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, hd, C,
-#:                     nw, s, bits, scale, softcap, stream)
+#:                     nw, s, bits, scale, softcap, S, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 128)
+
+#: the kernel's blocking (``csrc/decode_attend.cu``): context tokens per
+#: tile, warps and query rows per block, most context splits (the portable
+#: cluster size)
+TILE = 32
+WARPS = 4
+ROWS_PER_BLOCK = 4
+MAX_SPLITS = 8
+#: an H100 SXM's streaming multiprocessors
+SM_COUNT = 132
+
+
+def split_count(B: int, T: int, H: int, KV: int, C: int) -> int:
+    """Context splits S of each (sequence, KV head, row group): the least
+    power of two that gives at least two blocks per SM, capped so that
+    every warp of a split has a tile (S <= tiles / WARPS) and at
+    MAX_SPLITS. lm-100m's decode (B 8, T 1, H = KV = 12, C 512): 96 row
+    groups, S = 4; its prefill chunk (T 64): 192, S = 2."""
+    groups = B * KV * -(-T * (H // KV) // ROWS_PER_BLOCK)
+    tiles = -(-C // TILE)
+    cap = max(1, min(MAX_SPLITS, tiles // WARPS))
+    S = 1
+    while S < cap and groups * S < 2 * SM_COUNT:
+        S *= 2
+    return min(S, cap)
+
+
+def walked_tiles(mask: torch.Tensor, heads: int,
+                 kv_heads: int) -> torch.Tensor:
+    """The kernel's skip rule: mask (B, T, C) -> bool (B, groups, tiles),
+    which tiles of the context the block of each row group walks (the same
+    for every KV head). A block's rows are r = t * g + i (query position t,
+    head i of the KV head's group), ROWS_PER_BLOCK at a time; it walks a
+    tile that one of its rows admits, and every tile if one of its rows
+    admits no position at all."""
+    B, T, C = mask.shape
+    g = heads // kv_heads
+    n_tiles = -(-C // TILE)
+    groups = -(-T * g // ROWS_PER_BLOCK)
+    r = torch.arange(groups * ROWS_PER_BLOCK, device=mask.device)
+    active = (r < T * g).reshape(groups, ROWS_PER_BLOCK)
+    t = torch.clamp(r // g, max=T - 1)
+    m = torch.nn.functional.pad(mask.to(torch.bool), (0, n_tiles * TILE - C))
+    per_tile = m.reshape(B, T, n_tiles, TILE).any(-1)[:, t]   # (B, R, tiles)
+    per_tile = per_tile.reshape(B, groups, ROWS_PER_BLOCK, n_tiles)
+    per_tile = per_tile & active[None, :, :, None]
+    empty = (~mask.to(torch.bool).any(-1))[:, t].reshape(
+        B, groups, ROWS_PER_BLOCK) & active[None]
+    return per_tile.any(2) | empty.any(2, keepdim=True)
 
 
 def _check(q, kw, klv, vw, vlv, mask, bits, kv_heads):
@@ -85,7 +134,8 @@ def decode_attend_cuda(q, kw, klv, vw, vlv, mask, *, bits: int,
     launch(q.data_ptr(), kw.data_ptr(), klv.data_ptr(), vw.data_ptr(),
            vlv.data_ptr(), mask.data_ptr(), out.data_ptr(), B, T, H,
            kv_heads, hd, C, nw, klv.shape[-1], bits, float(scale),
-           float(softcap or 0.0), torch.cuda.current_stream().cuda_stream)
+           float(softcap or 0.0), split_count(B, T, H, kv_heads, C),
+           torch.cuda.current_stream().cuda_stream)
     decode_attend_cuda.launches += 1
     return out
 

@@ -131,3 +131,92 @@ def test_wrappers_reject_bad_shapes():
         fused_encode.encode_fused_plain(torch.zeros(2, 8),
                                         torch.zeros(2, 9), None, None, None,
                                         bits=3, mode="bin")
+
+
+# The CUDA kernel skips every context tile that no row of its block admits
+# (all tiles for a block with a fully masked row) and cuts the context into
+# ``split_count`` splits. Its premise, checked on the plain version: the
+# skipped tiles carry weight exactly 0, so attending over the walked tiles
+# alone gives the same output (within float32 summation order).
+SKIP_CASES = {  # name -> (B, T, H, KV, C, mask kind)
+    "decode": (4, 1, 4, 4, 200, "causal"),
+    "window": (3, 2, 4, 2, 160, "window"),
+    "holes": (2, 3, 8, 2, 96, "holes"),
+    "fully_masked_row": (2, 3, 4, 4, 128, "masked_row"),
+    "gqa_prefill": (1, 5, 8, 2, 128, "causal"),
+}
+
+
+def _skip_mask(B, T, C, kind, rng):
+    c = np.arange(C)[None, None, :]
+    qpos = rng.integers(0, C - T + 1, (B,))[:, None] + np.arange(T)[None]
+    qpos = qpos[:, :, None]
+    if kind == "masked_row":   # row t = 0 admits nothing; t = 1 one position
+        qpos = np.full((B, 1, 1), -1) + np.arange(T)[None, :, None]
+    mask = c <= qpos
+    if kind == "window":
+        mask &= c > qpos - 40
+    if kind == "holes":
+        mask = rng.random((B, T, C)) < 0.05
+    return torch.from_numpy(np.ascontiguousarray(mask))
+
+
+@pytest.mark.parametrize("case", sorted(SKIP_CASES))
+def test_skip_rule_drops_only_zero_weights(case):
+    B, T, H, KV, C, kind = SKIP_CASES[case]
+    hd, bits, s, g = 32, 4, 9, H // KV
+    rng = np.random.default_rng(sorted(SKIP_CASES).index(case))
+    nw = -(-KV * hd // 8)
+    words = [_t(rng.integers(-2 ** 31, 2 ** 31, (B, C, nw), dtype=np.int64)
+                .astype(np.int32)) for _ in range(2)]
+    lvs = [_t(np.sort(rng.standard_normal((B, C, s)).astype(np.float32)))
+           for _ in range(2)]
+    q = _t(rng.standard_normal((B, T, H, hd)).astype(np.float32))
+    mask = _skip_mask(B, T, C, kind, rng)
+    kw = dict(bits=bits, kv_heads=KV, scale=hd ** -0.5)
+    full = fused_kv.decode_attend_plain(q, words[0], lvs[0], words[1], lvs[1],
+                                        mask, **kw)
+    walked = fused_kv.walked_tiles(mask, H, KV)
+    n_tiles = -(-C // fused_kv.TILE)
+    assert walked.shape == (B, -(-T * g // fused_kv.ROWS_PER_BLOCK), n_tiles)
+    if kind == "masked_row":   # the block of a fully masked row walks all
+        assert walked[:, 0].all()
+    else:
+        assert not walked.all()
+    for b in range(B):
+        for grp in range(walked.shape[1]):
+            tiles = walked[b, grp].nonzero().flatten()
+            pos = (tiles[:, None] * fused_kv.TILE
+                   + torch.arange(fused_kv.TILE)).flatten()
+            pos = pos[pos < C]
+            sub = fused_kv.decode_attend_plain(
+                q[b:b + 1], words[0][b:b + 1, pos].contiguous(),
+                lvs[0][b:b + 1, pos].contiguous(),
+                words[1][b:b + 1, pos].contiguous(),
+                lvs[1][b:b + 1, pos].contiguous(),
+                mask[b:b + 1, :, pos].contiguous(), **kw)
+            rows = range(grp * fused_kv.ROWS_PER_BLOCK,
+                         min((grp + 1) * fused_kv.ROWS_PER_BLOCK, T * g))
+            for r in rows:
+                t, i = divmod(r, g)
+                heads = [kvh * g + i for kvh in range(KV)]
+                np.testing.assert_allclose(sub[0, t, heads].numpy(),
+                                           full[b, t, heads].numpy(),
+                                           rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 1, 12, 12, 512), 4),     # lm-100m decode, batch 8
+    ((1, 64, 12, 12, 512), 2),    # lm-100m prefill chunk
+    ((4, 1, 8, 2, 256), 2),       # GQA, short context: capped by tiles
+    ((1, 1, 4, 4, 40), 1),        # two tiles
+    ((8, 1, 12, 12, 1000), 4),
+    ((1, 1, 32, 8, 4096), 8),     # capped at the portable cluster size
+])
+def test_split_count(shape, want):
+    B, T, H, KV, C = shape
+    S = fused_kv.split_count(*shape)
+    tiles = -(-C // fused_kv.TILE)
+    assert S == want
+    assert 1 <= S <= fused_kv.MAX_SPLITS and S & (S - 1) == 0
+    assert S == 1 or S * fused_kv.WARPS <= tiles

@@ -60,17 +60,38 @@ def test_encode_fused_cuda_bit_equal(cuda, mode, bits, s, d, masked, clip):
     assert torch.equal(got.cpu(), want)
 
 
-ATTEND_CASES = {  # name -> (B, T, H, KV, hd, C, softcap, first positions)
+ATTEND_CASES = {  # name -> (B, T, H, KV, hd, C, softcap, first positions
+    #                          [, "window", width | "holes", admitted share])
     "decode": (3, 1, 4, 4, 32, 40, 0.0, [39, 5, 13]),
     "prefill": (1, 16, 12, 12, 64, 64, 0.0, [20]),
     "gqa": (2, 1, 8, 2, 64, 48, 0.0, [47, 9]),
     "softcap": (2, 3, 4, 2, 128, 33, 5.0, [7, 30]),
     "fully_masked": (2, 1, 4, 4, 32, 16, 0.0, [-1, 15]),
+    # the skip and the split (S 4 at C 512, 8 at C 1000, fused_kv.
+    # split_count): last admitted position at 0, 31, 32, 511, C - 1
+    "split_c512_last0_511": (2, 1, 4, 4, 64, 512, 0.0, [0, 511]),
+    "split_c512_last31_32": (2, 1, 4, 4, 64, 512, 0.0, [31, 32]),
+    "split_c1000_last999": (2, 1, 4, 4, 64, 1000, 0.0, [999, 500]),
+    # an admitted run across split boundaries (128, 256 at S 4), not from 0
+    "split_c512_window": (1, 1, 4, 4, 64, 512, 0.0, [300], "window", 250),
+    "split_c1000_window": (2, 2, 4, 4, 64, 1000, 0.0, [700, 90], "window",
+                           200),
+    "split_holes": (2, 2, 4, 4, 64, 512, 0.0, [400, 200], "holes", 0.3),
+    # T > 1, row t = 0 fully masked beside admitted rows of its block
+    "split_masked_row_t3": (2, 3, 4, 4, 64, 512, 0.0, [-1, 130]),
+    "split_masked_row_c1000": (1, 2, 4, 4, 64, 1000, 0.0, [-1]),
+    "split_gqa4": (2, 1, 8, 2, 64, 512, 0.0, [137, 511]),
+    "split_gqa4_t3_softcap": (1, 3, 8, 2, 32, 1000, 5.0, [600]),
+    "split_hd32": (3, 1, 4, 4, 32, 512, 0.0, [40, 160, 511]),
+    "split_hd128": (2, 2, 4, 2, 128, 512, 0.0, [255, 256]),
+    # the serving path's positions: 128-160 of 512
+    "split_serve": (8, 1, 12, 12, 64, 512, 0.0,
+                    [128, 132, 137, 141, 146, 150, 155, 160]),
 }
 
 
 def _attend_inputs(case):
-    B, T, H, KV, hd, C, cap, first = ATTEND_CASES[case]
+    B, T, H, KV, hd, C, cap, first, *band = ATTEND_CASES[case]
     g = _gen(sorted(ATTEND_CASES).index(case))
     d = KV * hd
     qz = make_quantizer("orq-9", bucket_size=d)
@@ -82,6 +103,10 @@ def _attend_inputs(case):
     q = torch.randn((B, T, H, hd), generator=g)
     qpos = torch.tensor(first)[:, None] + torch.arange(T)[None]
     mask = torch.arange(C)[None, None, :] <= qpos[:, :, None]
+    if band and band[0] == "window":
+        mask &= torch.arange(C)[None, None, :] > qpos[:, :, None] - band[1]
+    if band and band[0] == "holes":
+        mask = torch.rand((B, T, C), generator=g) < band[1]
     kwargs = dict(bits=qz.wire_bits_per_element, kv_heads=KV,
                   scale=hd ** -0.5, softcap=cap)
     return (q, kw, klv, vw, vlv, mask), kwargs

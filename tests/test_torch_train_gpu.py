@@ -59,8 +59,16 @@ def test_decode_fused_mean_cuda_bit_equal(cuda, L, bits, s, d):
     assert torch.equal(got.cpu(), want)
 
 
+#: the per-worker decode's quads, ragged rows and 16-byte alignment: bits
+#: 1-5 at d 2048, 2047, 300 and 37 (rows of d 2047 and 37 start unaligned),
+#: L 1 and 4; 33 rows, not a multiple of the 8 rows a block takes
+EACH_CASES = [(L, bits, s, d) for L in (1, 4)
+              for bits, s in ((1, 2), (2, 3), (3, 5), (4, 9), (5, 17))
+              for d in (2048, 2047, 300, 37)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,bits,s,d", DECODE_CASES)
+@pytest.mark.parametrize("L,bits,s,d", sorted(set(DECODE_CASES + EACH_CASES)))
 def test_decode_fused_each_cuda_bit_equal(cuda, L, bits, s, d):
     words, levels = _stack(L, 33, d, bits, s, seed=L * 10 + bits + 1)
     want = fused_decode.decode_fused_each_plain(words, levels, d=d,
@@ -68,6 +76,20 @@ def test_decode_fused_each_cuda_bit_equal(cuda, L, bits, s, d):
     got = fused_decode.decode_fused_each_cuda(words.to(cuda),
                                               levels.to(cuda), d=d,
                                               bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,d", [(1, 37), (7, 2048), (8, 2047), (1001, 300),
+                                  (3000, 2048)])
+def test_decode_fused_each_cuda_row_counts(cuda, nb, d):
+    """Blocks of 8 rows: a run shorter than a block, exactly one, and many
+    with a partial last block."""
+    words, levels = _stack(3, nb, d, 4, 9, seed=nb)
+    want = fused_decode.decode_fused_each_plain(words, levels, d=d, bits=4)
+    got = fused_decode.decode_fused_each_cuda(words.to(cuda),
+                                              levels.to(cuda), d=d, bits=4)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
