@@ -28,9 +28,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             only the positions the mask admits). ``decode_attend`` also
             prints its context splits and the tiles its blocks walk (the
             rest it skips), and is timed at the serving phase's positions
-            too. The training kernels are timed at the training path's
-            shape (66,058 buckets of 2048); both decodes at 4 and at 1 bit,
-            ``decode_fused_each`` also at L = 4.
+            and at head dims 16 and 256 too. The training kernels are
+            timed at the training path's shape (66,058 buckets of 2048):
+            ``encode_fused`` at 4, 1 and 3 bits, both decodes at 4 and at
+            1 bit and at L = 4 (4 workers' chunks of 16,515 rows).
 4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
@@ -269,34 +270,43 @@ def check_encode(torch, dev):
             plain_on_card_mismatched=int((plain_gpu != got).sum()),
             max_abs_err=float(mism), ms=ms, plain_ms=plain_ms,
             library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
-            bytes=moved, bound_ms=b_ms, bound_by=b_by)
+            bytes=moved, bound_ms=b_ms, bound_by=b_by,
+            warps_blocks=fe.encode_grid(nb, d, bits))
         emit("kernel", kernel="encode_fused", case=name, **results[name])
         if mism:
             raise AssertionError(f"encode_fused {name}: {mism} words differ "
                                  f"from the plain version")
-    # the training path's shape (both exchange phases encode one buffer)
+    # the training path's shape (both exchange phases encode one buffer):
+    # orq-9 at 4 bits, and the 1-bit (minmax2's levels) and 3-bit (orq-5)
+    # widths of the other random-round schemes
+    from repro_torch.core import levels as lvmod
     v, lv, rb, mask = _train_shape_inputs(torch, dev, g)
-    args = (v, lv, rb, mask, None)
-    kern = lambda: fe.encode_fused_cuda(*args, bits=4)
-    plain = lambda: fe.encode_fused_plain(*args, bits=4)
-    got = kern()
-    mism = _mismatch(torch, got, plain())
-    ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
-        plain, reps=2, rounds=3)
-    dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
-    moved = nbytes(*args, got)
-    b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * 9 + 8)))
-    results["train_main_shape"] = dict(
-        shape=[TRAIN_NB, TRAIN_D], s=9, bits=4, mode="rr", mask="exchange",
-        words_mismatched=mism, max_abs_err=float(mism), ms=ms,
-        plain_ms=plain_ms, library_ms=None, device_ms=dev_ms,
-        plain_device_ms=plain_dev_ms, bytes=moved, bound_ms=b_ms,
-        bound_by=b_by)
-    emit("kernel", kernel="encode_fused", case="train_main_shape",
-         **results["train_main_shape"])
-    if mism:
-        raise AssertionError(f"encode_fused at the training shape: {mism} "
-                             f"words differ from the plain version")
+    widths = {"train_main_shape": (4, lv),
+              "train_main_shape_bits1": (1, lvmod.minmax_levels(v, mask)),
+              "train_main_shape_bits3": (3, lvmod.orq_levels(v, mask, 2))}
+    for name, (bits, lv) in widths.items():
+        args = (v, lv, rb, mask, None)
+        kern = lambda: fe.encode_fused_cuda(*args, bits=bits)
+        plain = lambda: fe.encode_fused_plain(*args, bits=bits)
+        got = kern()
+        mism = _mismatch(torch, got, plain())
+        ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
+            plain, reps=2, rounds=3)
+        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
+        moved = nbytes(*args, got)
+        s = lv.shape[1]
+        b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * s + 8)))
+        results[name] = dict(
+            shape=[TRAIN_NB, TRAIN_D], s=s, bits=bits, mode="rr",
+            mask="exchange", words_mismatched=mism, max_abs_err=float(mism),
+            ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=dev_ms,
+            plain_device_ms=plain_dev_ms, bytes=moved, bound_ms=b_ms,
+            bound_by=b_by, warps_blocks=fe.encode_grid(TRAIN_NB, TRAIN_D,
+                                                       bits))
+        emit("kernel", kernel="encode_fused", case=name, **results[name])
+        if mism:
+            raise AssertionError(f"encode_fused {name}: {mism} words differ "
+                                 f"from the plain version")
     return results
 
 
@@ -349,6 +359,10 @@ def check_attend(torch, dev):
         # the serving phase's decode positions: 128-160 of 512
         "serve_positions": (8, 1, 12, 12, 64, 512, 0.0,
                             [128, 132, 137, 141, 146, 150, 155, 160]),
+        # other head dims at batch-8 decode: command-r-plus's smoke config
+        # (hd 16, padded to 32) and gemma2-9b (16 heads over 8, hd 256)
+        "hd16": (8, 1, 8, 2, 16, 512, 0.0, None),
+        "hd256": (8, 1, 16, 8, 256, 512, 0.0, None),
     }
     results = {}
     for name, (B, T, H, KV, hd, C, cap, first) in cases.items():
@@ -385,7 +399,8 @@ def check_attend(torch, dev):
         b_ms, b_by = bound(moved, ops)
         walked = fk.walked_tiles(mask, H, KV)
         results[name] = dict(
-            B=B, T=T, H=H, KV=KV, hd=hd, C=C, softcap=cap,
+            B=B, T=T, H=H, KV=KV, hd=hd, padded_hd=fk.padded_head_dim(hd),
+            C=C, softcap=cap,
             admitted_share=float(mask.float().mean()),
             splits=fk.split_count(B, T, H, KV, C),
             tiles_walked=int(walked.sum()) * KV,
@@ -484,8 +499,6 @@ def check_decode(torch, dev):
                  fd.decode_fused_mean_cuda),
                 ("decode_fused_each", fd.decode_fused_each_plain,
                  fd.decode_fused_each_cuda)):
-            if L > 1 and kname == "decode_fused_mean":
-                continue
             kern = lambda: cuda(words, levels, d=TRAIN_D, bits=bits)
             pl = lambda: plain(words, levels, d=TRAIN_D, bits=bits)
             got = kern()
@@ -498,6 +511,8 @@ def check_decode(torch, dev):
             key = kname if tag == "bits4" else f"{kname}/{tag}"
             results[key] = dict(
                 shape=[L, nb, TRAIN_D], bits=bits, s=s, mismatched=mism,
+                rows_per_block=(fd.mean_rows(L, s)
+                                if kname == "decode_fused_mean" else None),
                 max_abs_err=worst[kname], ms=ms, plain_ms=plain_ms,
                 library_ms=None, device_ms=dev_ms,
                 plain_device_ms=plain_dev_ms, bytes=moved, bound_ms=b_ms,
@@ -1566,16 +1581,20 @@ def main() -> int:
     kernels = [
         row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
             "src/repro/kernels/fused_encode.py:255", e,
-            train_shape=shape_of(enc["train_main_shape"])),
+            train_shape=shape_of(enc["train_main_shape"]),
+            train_shape_bits1=shape_of(enc["train_main_shape_bits1"]),
+            train_shape_bits3=shape_of(enc["train_main_shape_bits3"])),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
             "src/repro/kernels/fused_kv.py:70", a,
             prefill_t64=shape_of(att["prefill_t64"]),
-            serve_positions=shape_of(att["serve_positions"])),
+            serve_positions=shape_of(att["serve_positions"]),
+            hd16=shape_of(att["hd16"]), hd256=shape_of(att["hd256"])),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
             "src/repro/kernels/fused_encode.py:283", qdq),
         row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"],
-            bits1=shape_of(dec["decode_fused_mean/bits1"])),
+            bits1=shape_of(dec["decode_fused_mean/bits1"]),
+            L4=shape_of(dec["decode_fused_mean/L4"])),
         row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:107",
             dec["decode_fused_each"],

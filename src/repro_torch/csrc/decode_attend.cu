@@ -52,6 +52,17 @@
 // S is the caller's (fused_kv.split_count: enough blocks to fill the card,
 // at most 8, the portable cluster size). Simple still: no tensor cores (the
 // decode shape has too few rows), no TMA.
+//
+// Head dims: the kernel is built for a padded head dim HDP in {32, 64,
+// 128, 256}, the least that holds the true hd (1..256), which it takes at
+// run time. A lane's dims lane + 32 k >= hd look up no level and store
+// nothing; the rows' queries are zero past hd, so the score loop, which
+// runs in whole unrolled runs, adds exactly 0 there. At 1, 2 and 4 bits a
+// head slice that starts inside a word (hd not a multiple of 32 / bits)
+// has its K words shifted into place as they are staged, so each
+// element's word and shift stay compile-time constants; at hd = HDP the
+// code is that of a kernel built for hd alone. HDP 256 needs ~70 KB of
+// shared memory a block, so its launch opts in above the 48 KB default.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,6 +77,7 @@ constexpr int kWarps = 4;      // warps per block
 constexpr int kRows = 4;       // query rows per block
 constexpr int kMaxLevels = 17;
 constexpr int kMaxSplits = 8;  // portable cluster size
+constexpr int kMaxHeadDim = 256;
 constexpr float kMasked = -2.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -73,24 +85,24 @@ constexpr unsigned kFull = 0xffffffffu;
 // then per warp its tile's K and V words (token c's head slice at c * kWs,
 // kWs odd so that lanes' rows fall in distinct banks) and level tables
 // (token c's at c * kMaxLevels), then the block's merged partial (m[kRows],
-// l[kRows], acc[kRows][HD]). After the loop a warp's words hold its own
-// partial in the same layout.
-template <int HD>
+// l[kRows], acc[kRows][HDP]). After the loop a warp's words hold its own
+// partial in the same layout. Sized for the padded head dim HDP; entries
+// past hd are never written or read.
+template <int HDP>
 struct Smem {
-  // words of one token's head slice at most: hd elements at 5 bits (6 a
-  // word), not aligned to a word
-  static constexpr int kSlice = (HD - 1) / 6 + 2;
+  // words of one token's head slice at most: up to HDP elements at 5 bits
+  // (6 a word; more a word at fewer bits), not aligned to a word
+  static constexpr int kSlice = (HDP - 1) / 6 + 2;
   static constexpr int kWs = kSlice | 1;
-  static constexpr int kQ = kRows * HD;
+  static constexpr int kQ = kRows * HDP;
   static constexpr int kWords = kTile * kWs;
   static constexpr int kLv = kTile * kMaxLevels;
   static constexpr int kWarp = 2 * kWords + 2 * kLv;
-  static constexpr int kPart = 2 * kRows + kRows * HD;
+  static constexpr int kPart = 2 * kRows + kRows * HDP;
   static constexpr size_t kBytes =
       sizeof(float) * (kQ + kWarps * kWarp + kPart);
   static_assert(kPart <= kWarp, "a warp's partial must fit its tile");
-  static_assert(kBytes <= 48 * 1024, "dynamic shared memory over the "
-                "default limit needs cudaFuncSetAttribute");
+  static_assert(kBytes <= 227 * 1024, "over a block's shared memory");
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -111,21 +123,61 @@ __device__ __forceinline__ float rescale(float mi, float mx) {
   return mi == -INFINITY ? 0.0f : expf(mi - mx);
 }
 
-template <int HD, int BITS>
+// acc += p V over a tile's positions, every position in turn, unrolled:
+// one some row weighs adds p * v, any other (its words maybe never
+// loaded) adds exactly 0, and so does a dim past hd (its index is held
+// against a limit of 0, so it reads no level; its word offset stays
+// inside the staged slice).
+template <int HDP, int BITS>
+__device__ __forceinline__ void pv_tile(
+    const uint32_t* vst, const float* lv, const float (&p)[kRows],
+    unsigned live, const bool (&dim)[HDP / 32], const int (&wo)[HDP / 32],
+    const int (&sh)[HDP / 32], int na, int s,
+    float (&acc)[kRows][HDP / 32]) {
+  constexpr int kPerLane = HDP / 32;
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  constexpr int kWs = Smem<HDP>::kWs;
+  // fully unrolled runs (shorter past hd 64, so that registers do not
+  // spill)
+  constexpr int kPvRun = HDP > 64 ? 8 : kTile;
+#pragma unroll 1
+  for (int c0v = 0; c0v < kTile; c0v += kPvRun) {
+#pragma unroll
+    for (int cv = 0; cv < kPvRun; ++cv) {
+      const int c = c0v + cv;
+      const bool w = (live >> c) & 1u;
+      float pc[kRows];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+        pc[rr] = __shfl_sync(kFull, p[rr], c);
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const uint32_t vc = (vst[c * kWs + wo[k]] >> sh[k]) & kMask;
+        const float val =
+            w && vc < (dim[k] ? (uint32_t)s : 0u) ? lv[c * kMaxLevels + vc]
+                                                  : 0.0f;
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr)
+          if (rr < na) acc[rr][k] += pc[rr] * val;
+      }
+    }
+  }
+}
+
+template <int HDP, int BITS>
 __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
     const float* __restrict__ q, const uint32_t* __restrict__ kw,
     const float* __restrict__ klv, const uint32_t* __restrict__ vw,
     const float* __restrict__ vlv, const uint8_t* __restrict__ mask,
-    float* __restrict__ out, int T, int H, int KV, int C, int nw, int s,
-    float scale, float softcap, int S) {
-  constexpr int kPerLane = HD / 32;
+    float* __restrict__ out, int T, int H, int KV, int hd, int C, int nw,
+    int s, float scale, float softcap, int S) {
+  constexpr int kPerLane = HDP / 32;
   constexpr int kEpw = 32 / BITS;  // indices a word
   constexpr uint32_t kMask = (1u << BITS) - 1u;
-  // fully unrolled runs of the score and PV loops (shorter at hd 128, so
-  // that registers do not spill)
-  constexpr int kDotRun = HD < 64 ? HD : 64;
-  constexpr int kPvRun = HD > 64 ? 8 : kTile;
-  using L = Smem<HD>;
+  // fully unrolled runs of the score loop (shorter past hd 64, so that
+  // registers do not spill)
+  constexpr int kDotRun = HDP < 64 ? HDP : 64;
+  using L = Smem<HDP>;
   constexpr int kWs = L::kWs;
   extern __shared__ float smem[];
   __shared__ int s_first, s_last;
@@ -138,7 +190,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
   const int na = min(kRows, T * g - r0);  // active rows of this block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float* qs = smem;
+  float* qs = smem;  // [kRows][HDP], zero past hd
   float* wbase = smem + L::kQ + warp * L::kWarp;
   uint32_t* kst = reinterpret_cast<uint32_t*>(wbase);  // [kTile][kWs]
   uint32_t* vst = kst + L::kWords;
@@ -150,9 +202,11 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
     s_first = C;
     s_last = -1;
   }
-  for (int i = threadIdx.x; i < na * HD; i += blockDim.x) {
-    const int rr = i / HD, r = r0 + rr;
-    qs[i] = q[(((size_t)b * T + r / g) * H + kvh * g + r % g) * HD + i % HD];
+  for (int i = threadIdx.x; i < na * HDP; i += blockDim.x) {
+    const int rr = i / HDP, j = i % HDP, r = r0 + rr;
+    qs[i] = j < hd ? q[(((size_t)b * T + r / g) * H + kvh * g + r % g) * hd
+                       + j]
+                   : 0.0f;
   }
   const size_t mrow0 = (size_t)b * T;  // mask row of (b, t): mrow0 + t
   // 1. the rows' admitted span, and whether some row admits nothing
@@ -187,17 +241,25 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
 
   const size_t ctx = (size_t)b * C;  // first context row of sequence b
   const uint8_t* mrow[kRows];
-  const int w0 = kvh * HD / kEpw;  // the head slice's first word
-  const int nwh = (kvh * HD + HD - 1) / kEpw - w0 + 1;
-  // the slice's first element's lane in word w0: 0 unless 3 or 5 bits
-  const int at0 = (kEpw & (kEpw - 1)) == 0 ? 0 : kvh * HD % kEpw;
-  int wo[kPerLane], sh[kPerLane];  // this lane's dims: slice word, shift
+  const int e0 = kvh * hd;                        // the head slice's first
+  const int w0 = e0 / kEpw;                       // element and word,
+  const int nwh = (e0 + hd - 1) / kEpw - w0 + 1;  // its words,
+  const int at0 = e0 % kEpw;  // and its first element's lane in word w0
+  // K element j of the head sits at staged element kat0 + j: words of 1, 2
+  // and 4 bits are shifted into place (by kShift bits) as they are staged
+  constexpr bool kPow2 = (kEpw & (kEpw - 1)) == 0;
+  const int kat0 = kPow2 ? 0 : at0;
+  const int kShift = kPow2 ? BITS * at0 : 0;
+  // this lane's dims lane + 32 k: inside hd, slice word, shift
+  bool dim[kPerLane];
+  int wo[kPerLane], sh[kPerLane];
 #pragma unroll
   for (int rr = 0; rr < kRows; ++rr)
     mrow[rr] = mask + (mrow0 + (r0 + min(rr, na - 1)) / g) * C;
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) {
-    const int e = kvh * HD + lane + 32 * k;
+    dim[k] = lane + 32 * k < hd;
+    const int e = e0 + (dim[k] ? lane + 32 * k : 0);
     wo[k] = e / kEpw - w0;
     sh[k] = BITS * (e % kEpw);
   }
@@ -220,11 +282,22 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
       const size_t row = ctx + cc;
       const uint32_t* kr = kw + row * nw + w0;
       const uint32_t* vr = vw + row * nw + w0;
+      if (kShift == 0) {
 #pragma unroll
-      for (int w = 0; w < L::kSlice; ++w) {
-        if (w < nwh) {
-          kst[lane * kWs + w] = kr[w];
-          vst[lane * kWs + w] = vr[w];
+        for (int w = 0; w < L::kSlice; ++w) {
+          if (w < nwh) {
+            kst[lane * kWs + w] = kr[w];
+            vst[lane * kWs + w] = vr[w];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < L::kSlice; ++w) {
+          if (w < nwh) {
+            kst[lane * kWs + w] = __funnelshift_r(
+                kr[w], w + 1 < nwh ? kr[w + 1] : 0u, kShift);
+            vst[lane * kWs + w] = vr[w];
+          }
         }
       }
 #pragma unroll
@@ -251,16 +324,19 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
     if (in) {
       const uint32_t* kr = kst + lane * kWs;
       const float* lt = lk + lane * kMaxLevels;
+      // whole unrolled runs over hd; the queries are zero past hd, so the
+      // rest of the last run adds exactly 0 (its lookups stay inside the
+      // staged words and name loaded levels)
 #pragma unroll 1
-      for (int j0 = 0; j0 < HD; j0 += kDotRun) {
+      for (int j0 = 0; j0 < (HDP <= kDotRun ? HDP : hd); j0 += kDotRun) {
 #pragma unroll
         for (int jj = 0; jj < kDotRun; ++jj) {
-          const int j = j0 + jj, e = at0 + j;
+          const int j = j0 + jj, e = kat0 + j;
           const uint32_t kc = (kr[e / kEpw] >> (BITS * (e % kEpw))) & kMask;
           const float kval = kc < (uint32_t)s ? lt[kc] : 0.0f;
 #pragma unroll
           for (int rr = 0; rr < kRows; ++rr)
-            if (rr < na) dot[rr] += qs[rr * HD + j] * kval;
+            if (rr < na) dot[rr] += qs[rr * HDP + j] * kval;
         }
       }
     }
@@ -285,29 +361,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
       m[rr] = m_new;
       live |= __ballot_sync(kFull, p[rr] != 0.0f);
     }
-    // every position in turn, unrolled: one some row weighs adds p * v,
-    // any other (its words maybe never loaded) adds exactly 0
-#pragma unroll 1
-    for (int c0v = 0; c0v < kTile; c0v += kPvRun) {
-#pragma unroll
-    for (int cv = 0; cv < kPvRun; ++cv) {
-      const int c = c0v + cv;
-      const bool w = (live >> c) & 1u;
-      float pc[kRows];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr)
-        pc[rr] = __shfl_sync(kFull, p[rr], c);
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const uint32_t vc = (vst[c * kWs + wo[k]] >> sh[k]) & kMask;
-        const float val =
-            w && vc < (uint32_t)s ? lv[c * kMaxLevels + vc] : 0.0f;
-#pragma unroll
-        for (int rr = 0; rr < kRows; ++rr)
-          if (rr < na) acc[rr][k] += pc[rr] * val;
-      }
-    }
-    }
+    pv_tile<HDP, BITS>(vst, lv, p, live, dim, wo, sh, na, s, acc);
     __syncwarp();  // the next tile overwrites this one's tables
   }
 
@@ -325,11 +379,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
     if (rr >= na) continue;
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k)
-      wp[2 * kRows + rr * HD + lane + 32 * k] = acc[rr][k];
+      if (dim[k]) wp[2 * kRows + rr * HDP + lane + 32 * k] = acc[rr][k];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < na * HD; i += blockDim.x) {
-    const int rr = i / HD;
+  for (int i = threadIdx.x; i < na * HDP; i += blockDim.x) {
+    const int rr = i / HDP;
+    if (i % HDP >= hd) continue;
     float mx = -INFINITY;
     for (int w = 0; w < kWarps; ++w)
       mx = fmaxf(mx, smem[L::kQ + w * L::kWarp + rr]);
@@ -341,7 +396,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
       as += pw[2 * kRows + i] * f;
     }
     part[2 * kRows + i] = as;
-    if (i % HD == 0) {
+    if (i % HDP == 0) {
       part[rr] = mx;
       part[kRows + rr] = ls;
     }
@@ -349,9 +404,10 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
   // 3b. merge the S splits through distributed shared memory; block
   // `split` writes elements split * blockDim + tid, + S * blockDim, ...
   cluster.sync();
-  for (int i = split * blockDim.x + threadIdx.x; i < na * HD;
+  for (int i = split * blockDim.x + threadIdx.x; i < na * HDP;
        i += S * blockDim.x) {
-    const int rr = i / HD, r = r0 + rr;
+    const int rr = i / HDP, j = i % HDP, r = r0 + rr;
+    if (j >= hd) continue;
     float mx = -INFINITY;
     for (int x = 0; x < S; ++x)
       mx = fmaxf(mx, cluster.map_shared_rank(part, x)[rr]);
@@ -362,22 +418,28 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attend_kernel(
       ls += px[kRows + rr] * f;
       as += px[2 * kRows + i] * f;
     }
-    out[(((size_t)b * T + r / g) * H + kvh * g + r % g) * HD + i % HD] =
-        as / ls;
+    out[(((size_t)b * T + r / g) * H + kvh * g + r % g) * hd + j] = as / ls;
   }
   cluster.sync();  // keep this block's partial alive until all have read
 }
 
-template <int HD, int BITS>
+template <int HDP, int BITS>
 int launch(const void* q, const void* kw, const void* klv, const void* vw,
            const void* vlv, const void* mask, void* out, int B, int T, int H,
-           int KV, int C, int nw, int s, float scale, float softcap, int S,
-           cudaStream_t stream) {
+           int KV, int hd, int C, int nw, int s, float scale, float softcap,
+           int S, cudaStream_t stream) {
+  constexpr size_t kSmem = Smem<HDP>::kBytes;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attend_kernel<HDP, BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int groups = (T * (H / KV) + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups * S, KV, B);
   cfg.blockDim = dim3(kWarps * 32);
-  cfg.dynamicSmemBytes = Smem<HD>::kBytes;
+  cfg.dynamicSmemBytes = kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -387,10 +449,10 @@ int launch(const void* q, const void* kw, const void* klv, const void* vw,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_attend_kernel<HD, BITS>, (const float*)q,
+      &cfg, decode_attend_kernel<HDP, BITS>, (const float*)q,
       (const uint32_t*)kw, (const float*)klv, (const uint32_t*)vw,
-      (const float*)vlv, (const uint8_t*)mask, (float*)out, T, H, KV, C, nw,
-      s, scale, softcap, S);
+      (const float*)vlv, (const uint8_t*)mask, (float*)out, T, H, KV, hd, C,
+      nw, s, scale, softcap, S);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -401,37 +463,36 @@ extern "C" {
 
 // S: context splits per (sequence, KV head, row group), the cluster size,
 // 1..8. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for shapes the kernel does not take: hd must be 32, 64 or 128).
+// for shapes the kernel does not take: hd must lie in 1..256).
 int repro_decode_attend(const void* q, const void* kw, const void* klv,
                         const void* vw, const void* vlv, const void* mask,
                         void* out, int B, int T, int H, int KV, int hd, int C,
                         int nw, int s, int bits, float scale, float softcap,
                         int S, void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || C <= 0 || KV <= 0 || KV > 65535 ||
-      H % KV != 0 || s < 1 || s > kMaxLevels || bits < 1 || bits > 5 ||
-      S < 1 || S > kMaxSplits ||
+      H % KV != 0 || hd < 1 || hd > kMaxHeadDim || s < 1 ||
+      s > kMaxLevels || bits < 1 || bits > 5 || S < 1 || S > kMaxSplits ||
       (long long)((T * (long long)(H / KV) + kRows - 1) / kRows) * S >
           0x7fffffffLL ||
       (long long)nw * (32 / bits) < (long long)KV * hd)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_ATTEND(HD, BITS)                                              \
-  launch<HD, BITS>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, C, nw, s, \
-                   scale, softcap, S, st)
-#define REPRO_ATTEND_BITS(HD)          \
-  switch (bits) {                      \
-    case 1: return REPRO_ATTEND(HD, 1); \
-    case 2: return REPRO_ATTEND(HD, 2); \
-    case 3: return REPRO_ATTEND(HD, 3); \
-    case 4: return REPRO_ATTEND(HD, 4); \
-    default: return REPRO_ATTEND(HD, 5); \
+#define REPRO_ATTEND(HDP, BITS)                                        \
+  launch<HDP, BITS>(q, kw, klv, vw, vlv, mask, out, B, T, H, KV, hd, C, \
+                    nw, s, scale, softcap, S, st)
+#define REPRO_ATTEND_BITS(HDP)          \
+  switch (bits) {                       \
+    case 1: return REPRO_ATTEND(HDP, 1); \
+    case 2: return REPRO_ATTEND(HDP, 2); \
+    case 3: return REPRO_ATTEND(HDP, 3); \
+    case 4: return REPRO_ATTEND(HDP, 4); \
+    default: return REPRO_ATTEND(HDP, 5); \
   }
-  switch (hd) {
-    case 32: REPRO_ATTEND_BITS(32)
-    case 64: REPRO_ATTEND_BITS(64)
-    case 128: REPRO_ATTEND_BITS(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the padded head dim: the least of 32, 64, 128, 256 that holds hd
+  if (hd <= 32) REPRO_ATTEND_BITS(32)
+  if (hd <= 64) REPRO_ATTEND_BITS(64)
+  if (hd <= 128) REPRO_ATTEND_BITS(128)
+  REPRO_ATTEND_BITS(256)
 #undef REPRO_ATTEND_BITS
 #undef REPRO_ATTEND
 }

@@ -14,11 +14,15 @@
 // at 3.35 TB/s. The f32 output dominates: it is 8x the packed input (32x
 // at 1 bit), so the stores decide the time.
 //
-// Design of the mean: one block per bucket row, the row's level tables in
-// shared memory; each thread takes whole words: it shifts the epw = 32 /
-// BITS indices of a word out of one register (BITS is a template
-// parameter, so the lanes unroll), looks each up and writes epw
-// consecutive floats (a store stride of 32 bytes at 4 bits).
+// Design of the mean (the per-worker decode's layout, with a loop over
+// the workers): a block takes R bucket rows, with their L level tables in
+// shared memory, and its threads walk the block's (row, quad) pairs. For
+// each of its 4 elements a thread accumulates over the workers in order,
+// then writes the 4 floats with one 16-byte store, so a warp stores 512
+// contiguous bytes. R = clamp(48 KB / (L * s * 4 B), 1, 8)
+// (fused_decode.mean_rows, passed in): 8 rows at any realistic L, fewer
+// as L grows, and one row whose tables need more than 48 KB of shared
+// memory, for which the launch opts in.
 //
 // Design of the per-worker decode: the (L, nb) rows are one run of L * nb
 // rows; a block takes kEachRows of them, with their level tables in shared
@@ -48,44 +52,85 @@
 namespace {
 
 constexpr int kMaxLevels = 17;
-constexpr int kThreads = 128;     // the mean: threads per row
+constexpr int kMeanThreads = 256;  // the mean: threads, and most rows per
+constexpr int kMeanRows = 8;       // block (R, the caller's, 1..8)
 constexpr int kEachThreads = 256;  // the per-worker decode: threads, and
 constexpr int kEachRows = 8;       // rows per block
+constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory at most
+
+// The 4 indices of quad e0 of a row (words w): a quad that straddles two
+// words at 3 and 5 bits reads both.
+template <int BITS>
+__device__ __forceinline__ void quad_indices(const uint32_t* w, int e0,
+                                             int nw, uint32_t (&idx)[4]) {
+  constexpr int kEpw = 32 / BITS;
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  constexpr bool kOneWord = kEpw % 4 == 0;  // a quad never splits a word
+  const int wa = e0 / kEpw;
+  const uint32_t a = w[wa];
+  uint32_t b = a;
+  if (!kOneWord) {
+    const int wb = min((e0 + 3) / kEpw, nw - 1);
+    if (wb != wa) b = w[wb];
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = e0 + u;
+    const uint32_t word = (kOneWord || e / kEpw == wa) ? a : b;
+    idx[u] = (word >> (BITS * (e % kEpw))) & kMask;
+  }
+}
+
+// The 4 floats of a quad at o: one 16-byte store where the quad is whole
+// and o aligned, else scalar stores of the elements inside the row.
+__device__ __forceinline__ void store_quad(float* o, int e0, int d,
+                                           const float (&v)[4]) {
+  if (e0 + 4 <= d && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (e0 + u < d) o[u] = v[u];
+  }
+}
 
 template <int BITS>
-__global__ void decode_mean_kernel(const uint32_t* __restrict__ words,
-                                   const float* __restrict__ levels,
-                                   float* __restrict__ out, int L, int nb,
-                                   int nw, int d, int s, float inv) {
-  extern __shared__ float lv[];  // (L, s): this row's level tables
-  const int row = blockIdx.x;
-  for (int i = threadIdx.x; i < L * s; i += blockDim.x) {
-    const int l = i / s;
-    lv[i] = levels[((size_t)l * nb + row) * s + (i - l * s)];
+__global__ void __launch_bounds__(kMeanThreads) decode_mean_kernel(
+    const uint32_t* __restrict__ words, const float* __restrict__ levels,
+    float* __restrict__ out, int L, int nb, int nw, int d, int s, int R,
+    float inv) {
+  extern __shared__ float lv[];  // [R][L][s]: the rows' level tables
+  const int r0 = blockIdx.x * R;
+  const int nr = min(R, nb - r0);
+  const int per = L * s;  // one row's tables
+  // worker l's tables of the block's rows are nr * s contiguous floats
+  for (int i = threadIdx.x; i < L * nr * s; i += blockDim.x) {
+    const int l = i / (nr * s), k = i - l * (nr * s);
+    const int rr = k / s;
+    lv[rr * per + l * s + (k - rr * s)] =
+        levels[((size_t)l * nb + r0) * s + k];
   }
   __syncthreads();
 
-  constexpr int kEpw = 32 / BITS;
-  constexpr uint32_t kMask = (1u << BITS) - 1u;
-  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
-    float acc[kEpw];
-#pragma unroll
-    for (int e = 0; e < kEpw; ++e) acc[e] = 0.0f;
+  const int nq = (d + 3) / 4;  // quads per row
+  const size_t plane = (size_t)nb * nw;  // one worker's words
+  for (int i = threadIdx.x; i < nr * nq; i += blockDim.x) {
+    const int rr = i / nq, e0 = 4 * (i - rr * nq);
+    const size_t r = (size_t)(r0 + rr);
+    const uint32_t* w = words + r * nw;
+    const float* t = lv + rr * per;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
     for (int l = 0; l < L; ++l) {
-      const uint32_t word = words[((size_t)l * nb + row) * nw + w];
-      const float* t = lv + l * s;
+      uint32_t idx[4];
+      quad_indices<BITS>(w + l * plane, e0, nw, idx);
 #pragma unroll
-      for (int e = 0; e < kEpw; ++e) {
-        const uint32_t idx = (word >> (BITS * e)) & kMask;
-        const float val = idx < (uint32_t)s ? t[idx] : 0.0f;
-        acc[e] = __fmaf_rn(val, inv, acc[e]);
+      for (int u = 0; u < 4; ++u) {
+        const float val = idx[u] < (uint32_t)s ? t[l * s + idx[u]] : 0.0f;
+        acc[u] = __fmaf_rn(val, inv, acc[u]);
       }
     }
-    float* o = out + (size_t)row * d + (size_t)w * kEpw;
-    const int n = d - w * kEpw;  // lanes of this word inside the row
-#pragma unroll
-    for (int e = 0; e < kEpw; ++e)
-      if (e < n) o[e] = acc[e];
+    store_quad(out + r * d + e0, e0, d, acc);
   }
 }
 
@@ -102,54 +147,34 @@ __global__ void __launch_bounds__(kEachThreads) decode_each_kernel(
   }
   __syncthreads();
 
-  constexpr int kEpw = 32 / BITS;
-  constexpr uint32_t kMask = (1u << BITS) - 1u;
-  constexpr bool kOneWord = kEpw % 4 == 0;  // a quad never splits a word
-  const int nq = (d + 3) / 4;               // quads per row
+  const int nq = (d + 3) / 4;  // quads per row
   for (int i = threadIdx.x; i < nr * nq; i += blockDim.x) {
     const int rr = i / nq, e0 = 4 * (i - rr * nq);
     const size_t r = (size_t)(r0 + rr);
-    const uint32_t* w = words + r * nw;
     const float* t = lv + rr * kMaxLevels;
-    const int wa = e0 / kEpw;
-    const uint32_t a = w[wa];
-    uint32_t b = a;
-    if (!kOneWord) {
-      const int wb = min((e0 + 3) / kEpw, nw - 1);
-      if (wb != wa) b = w[wb];
-    }
+    uint32_t idx[4];
+    quad_indices<BITS>(words + r * nw, e0, nw, idx);
     float v[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u;
-      const uint32_t word = (kOneWord || e / kEpw == wa) ? a : b;
-      const uint32_t idx = (word >> (BITS * (e % kEpw))) & kMask;
-      v[u] = idx < (uint32_t)s ? t[idx] : 0.0f;
-    }
-    float* o = out + r * d + e0;
-    if (e0 + 4 <= d && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (e0 + u < d) o[u] = v[u];
-    }
+    for (int u = 0; u < 4; ++u)
+      v[u] = idx[u] < (uint32_t)s ? t[idx[u]] : 0.0f;
+    store_quad(out + r * d + e0, e0, d, v);
   }
 }
 
 template <int BITS>
 cudaError_t launch_mean(const uint32_t* w, const float* lv, float* out,
-                        int L, int nb, int nw, int d, int s, float inv,
+                        int L, int nb, int nw, int d, int s, int R, float inv,
                         cudaStream_t stream) {
-  const size_t smem = (size_t)L * s * sizeof(float);
+  const size_t smem = (size_t)R * L * s * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_mean_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  decode_mean_kernel<BITS><<<nb, kThreads, smem, stream>>>(w, lv, out, L, nb,
-                                                           nw, d, s, inv);
+  decode_mean_kernel<BITS><<<(nb + R - 1) / R, kMeanThreads, smem, stream>>>(
+      w, lv, out, L, nb, nw, d, s, R, inv);
   return cudaGetLastError();
 }
 
@@ -173,21 +198,25 @@ bool bad_args(int L, int nb, int nw, int d, int s, int bits) {
 extern "C" {
 
 // words: (L, nb, nw) uint32; levels: (L, nb, s) float32; out: (nb, d)
-// float32 mean. inv = float32(1 / L). Returns cudaGetLastError().
+// float32 mean. R: rows per block, 1..8, whose R * L * s level floats fit
+// a block's shared memory; inv = float32(1 / L). Returns
+// cudaGetLastError().
 int repro_decode_fused_mean(const void* words, const void* levels, void* out,
                             int L, int nb, int nw, int d, int s, int bits,
-                            float inv, void* stream) {
-  if (bad_args(L, nb, nw, d, s, bits)) return (int)cudaErrorInvalidValue;
+                            int R, float inv, void* stream) {
+  if (bad_args(L, nb, nw, d, s, bits) || R < 1 || R > kMeanRows ||
+      (size_t)R * L * s * sizeof(float) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   const uint32_t* w = (const uint32_t*)words;
   const float* lv = (const float*)levels;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (bits) {
-    case 1: return (int)launch_mean<1>(w, lv, o, L, nb, nw, d, s, inv, st);
-    case 2: return (int)launch_mean<2>(w, lv, o, L, nb, nw, d, s, inv, st);
-    case 3: return (int)launch_mean<3>(w, lv, o, L, nb, nw, d, s, inv, st);
-    case 4: return (int)launch_mean<4>(w, lv, o, L, nb, nw, d, s, inv, st);
-    default: return (int)launch_mean<5>(w, lv, o, L, nb, nw, d, s, inv, st);
+    case 1: return (int)launch_mean<1>(w, lv, o, L, nb, nw, d, s, R, inv, st);
+    case 2: return (int)launch_mean<2>(w, lv, o, L, nb, nw, d, s, R, inv, st);
+    case 3: return (int)launch_mean<3>(w, lv, o, L, nb, nw, d, s, R, inv, st);
+    case 4: return (int)launch_mean<4>(w, lv, o, L, nb, nw, d, s, R, inv, st);
+    default: return (int)launch_mean<5>(w, lv, o, L, nb, nw, d, s, R, inv, st);
   }
 }
 

@@ -26,16 +26,30 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 MAX_LEVELS = 17
-#: the mean kernel holds a row's L level tables in shared memory
+#: the mean kernel holds its rows' L level tables in shared memory: at
+#: most a block's 227 KB, and rows per block are chosen to stay within the
+#: 48 KB a launch gets without opting in
 SMEM_BYTES = 227 * 1024
+MEAN_SMEM_BUDGET = 48 * 1024
+#: most bucket rows a block of the mean kernel takes
+MEAN_MAX_ROWS = 8
 
-#: repro_decode_fused_mean(words, levels, out, L, nb, nw, d, s, bits, inv,
-#:                         stream)
-_MEAN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+#: repro_decode_fused_mean(words, levels, out, L, nb, nw, d, s, bits, R,
+#:                         inv, stream)
+_MEAN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p])
 #: repro_decode_fused_each(words, levels, out, L, nb, nw, d, s, bits, stream)
 _EACH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
+
+
+def mean_rows(L: int, s: int) -> int:
+    """Bucket rows R a block of the mean kernel takes: as many as keep
+    the rows' L level tables of s floats within MEAN_SMEM_BUDGET, between
+    1 and MEAN_MAX_ROWS. R = 8 up to L * s = 1536 (L = 90 at s = 17); a
+    single row needs more than the budget from L * s = 12,289, and the
+    launch then opts in to more shared memory."""
+    return max(1, min(MEAN_MAX_ROWS, MEAN_SMEM_BUDGET // (L * s * 4)))
 
 
 def _check(words: torch.Tensor, levels: torch.Tensor, d: int, bits: int):
@@ -94,7 +108,7 @@ def decode_fused_mean_cuda(words, levels, *, d: int, bits: int):
         launch = build.function("decode_fused", "repro_decode_fused_mean",
                                 _MEAN_ARGTYPES)
         launch(words.data_ptr(), levels.data_ptr(), out.data_ptr(), L, nb,
-               nw, d, s, bits, float(np.float32(1.0 / L)),
+               nw, d, s, bits, mean_rows(L, s), float(np.float32(1.0 / L)),
                torch.cuda.current_stream().cuda_stream)
         decode_fused_mean_cuda.launches += 1
     return out

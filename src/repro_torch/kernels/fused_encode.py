@@ -33,6 +33,28 @@ from repro_torch.kernels import build
 MODES = ("rr", "bin", "sign")
 MAX_LEVELS = 17          # the kernel's level-table capacity (s <= 17)
 
+#: the encode kernel's blocking (``csrc/encode_fused.cu``): words a warp
+#: packs (one a lane), most warps a block
+TILE_WORDS = 32
+MAX_WARPS = 8
+#: an H100 SXM's streaming multiprocessors
+SM_COUNT = 132
+
+
+def encode_grid(nb: int, d: int, bits: int):
+    """(warps a block, blocks) of the encode launch. A warp packs a tile
+    of TILE_WORDS words of a row; a block takes up to MAX_WARPS tiles of
+    one row once that still gives every SM two blocks of MAX_WARPS warps,
+    else one, so that a small call spreads over as many blocks as it has
+    tiles. The serving decode's 16 rows of 768 at 4 bits: 48 one-warp
+    blocks; the training buffer's 66,058 rows of 2048 at 4 bits: one
+    block of eight warps a row."""
+    tiles = -(-encode.packed_words(d, bits) // TILE_WORDS)
+    warps = 1
+    if nb * tiles >= 2 * SM_COUNT * MAX_WARPS:
+        warps = min(MAX_WARPS, tiles)
+    return warps, nb * -(-tiles // warps)
+
 
 def clip_limit(v: torch.Tensor, mask: Optional[torch.Tensor],
                clip_c: Optional[float]) -> Optional[torch.Tensor]:
@@ -146,8 +168,8 @@ def qdq_fused_plain(v: torch.Tensor, levels: torch.Tensor,
 
 _MODE_CODES = {"rr": 0, "bin": 1, "sign": 2}
 #: repro_encode_fused(v, levels, rbits, mask, lim, out, nb, d, s, bits,
-#:                    mode, stream)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#:                    mode, warps, stream)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #: repro_qdq_fused(v, levels, rbits, mask, lim, out, nb, d, s, mode, stream)
 _QDQ_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
@@ -189,7 +211,8 @@ def encode_fused_cuda(v: torch.Tensor, levels: torch.Tensor,
         launch(v.data_ptr(), levels.data_ptr(),
                _ptr(rbits if mode == "rr" else None), _ptr(mask), _ptr(lim),
                out.data_ptr(), nb, d, levels.shape[1], bits,
-               _MODE_CODES[mode], torch.cuda.current_stream().cuda_stream)
+               _MODE_CODES[mode], encode_grid(nb, d, bits)[0],
+               torch.cuda.current_stream().cuda_stream)
         encode_fused_cuda.launches += 1
     return out
 

@@ -24,7 +24,10 @@ from repro_torch.kernels import ref as _ref
 #:                     nw, s, bits, scale, softcap, S, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)
+#: the head dims the kernel is built for (``csrc/decode_attend.cu``): a
+#: call runs the least that holds its hd, which may be any of 1..256
+PADDED_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = PADDED_HEAD_DIMS[-1]
 
 #: the kernel's blocking (``csrc/decode_attend.cu``): context tokens per
 #: tile, warps and query rows per block, most context splits (the portable
@@ -35,6 +38,15 @@ ROWS_PER_BLOCK = 4
 MAX_SPLITS = 8
 #: an H100 SXM's streaming multiprocessors
 SM_COUNT = 132
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel instantiation a head dim runs: the least of
+    PADDED_HEAD_DIMS that holds it. Raises for hd outside 1..256."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attend: head_dim {hd} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    return next(p for p in PADDED_HEAD_DIMS if hd <= p)
 
 
 def split_count(B: int, T: int, H: int, KV: int, C: int) -> int:
@@ -125,8 +137,7 @@ def decode_attend_cuda(q, kw, klv, vw, vlv, mask, *, bits: int,
             raise TypeError(f"decode_attend: {name} must be {dts}, "
                             f"got {t.dtype}")
     B, T, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attend: head_dim {hd} not in {HEAD_DIMS}")
+    padded_head_dim(hd)
     C, nw = kw.shape[1], kw.shape[2]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     launch = build.function("decode_attend", "repro_decode_attend",

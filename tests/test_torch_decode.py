@@ -72,6 +72,23 @@ def test_decode_fused_each_plain_exact(L, bits, s, d):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("L,s,want", [
+    (1, 9, 8), (4, 9, 8), (4, 2, 8), (90, 17, 8), (91, 17, 7), (400, 17, 1),
+    (800, 17, 1),
+    # the largest L the mean wrapper takes: one row's tables fill 227 KB
+    (fused_decode.SMEM_BYTES // (4 * 17), 17, 1),
+    (fused_decode.SMEM_BYTES // (4 * 2), 2, 1),
+])
+def test_mean_rows_per_block(L, s, want):
+    """Rows a block of the mean kernel takes: 8 while their L level tables
+    fit the 48 KB budget, fewer as L grows, one row (alone over the budget
+    from L * s > 12,288, where the launch opts in) up to 227 KB."""
+    R = fused_decode.mean_rows(L, s)
+    assert R == want
+    assert R * L * s * 4 <= fused_decode.SMEM_BYTES
+    assert R == 1 or R * L * s * 4 <= fused_decode.MEAN_SMEM_BUDGET
+
+
 def test_decode_mean_is_not_sum_then_scale():
     """At L = 3 the kernel's order (a fused multiply-add per worker), a
     separate multiply and add, and the reference's jnp oracle (add, then

@@ -61,6 +61,11 @@ ATTEND_CASES = {  # name -> (B, T, H, KV, hd, C, scheme, softcap, fills)
     "softcap": (2, 3, 4, 2, 32, 16, "orq-9", 5.0, [7, 16]),
     "fully_masked": (2, 1, 4, 4, 32, 16, "orq-9", 0.0, [0, 16]),
     "bits3_ragged": (2, 1, 2, 2, 50, 16, "orq-5", 0.0, [10, 3]),
+    # head dims the CUDA kernel pads to 32, 64 and 256 (command-r-plus's
+    # smoke config and whisper-base: hd 16; gemma2-9b: hd 256)
+    "hd16": (2, 1, 8, 2, 16, 24, "orq-9", 0.0, [24, 7]),
+    "hd48_bits1": (2, 2, 4, 4, 48, 16, "bingrad-b", 0.0, [9, 16]),
+    "hd256_gqa": (2, 1, 4, 2, 256, 16, "orq-9", 0.0, [16, 5]),
 }
 
 
@@ -203,6 +208,19 @@ def test_skip_rule_drops_only_zero_weights(case):
                 np.testing.assert_allclose(sub[0, t, heads].numpy(),
                                            full[b, t, heads].numpy(),
                                            rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("hd,want", [(1, 32), (16, 32), (32, 32), (33, 64),
+                                     (48, 64), (64, 64), (80, 128),
+                                     (128, 128), (129, 256), (256, 256)])
+def test_padded_head_dim(hd, want):
+    assert fused_kv.padded_head_dim(hd) == want
+
+
+@pytest.mark.parametrize("hd", [0, -4, 257, 320])
+def test_padded_head_dim_rejects(hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_kv.padded_head_dim(hd)
 
 
 @pytest.mark.parametrize("shape,want", [

@@ -35,16 +35,8 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode,bits,s,d,masked,clip", [
-    ("rr", 4, 9, 768, False, False), ("rr", 4, 9, 768, True, True),
-    ("rr", 3, 5, 100, True, False), ("rr", 5, 17, 300, False, True),
-    ("rr", 2, 3, 33, True, False), ("rr", 1, 2, 64, False, False),
-    ("bin", 1, 2, 768, True, False), ("sign", 1, 2, 100, False, True),
-])
-def test_encode_fused_cuda_bit_equal(cuda, mode, bits, s, d, masked, clip):
-    g = _gen(d + bits)
-    nb = 37
+def _encode_bit_equal(cuda, mode, bits, s, d, masked, clip, nb, seed):
+    g = _gen(seed)
     v = torch.randn((nb, d), generator=g) * 0.3
     lv = torch.sort(torch.randn((nb, s), generator=g) * 0.3).values
     rb = (torch.randint(-2 ** 31, 2 ** 31, (nb, d), generator=g,
@@ -58,6 +50,47 @@ def test_encode_fused_cuda_bit_equal(cuda, mode, bits, s, d, masked, clip):
     got = fused_encode.encode_fused_cuda(*dev, bits=bits, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,bits,s,d,masked,clip", [
+    ("rr", 4, 9, 768, False, False), ("rr", 4, 9, 768, True, True),
+    ("rr", 3, 5, 100, True, False), ("rr", 5, 17, 300, False, True),
+    ("rr", 2, 3, 33, True, False), ("rr", 1, 2, 64, False, False),
+    ("bin", 1, 2, 768, True, False), ("sign", 1, 2, 100, False, True),
+])
+def test_encode_fused_cuda_bit_equal(cuda, mode, bits, s, d, masked, clip):
+    _encode_bit_equal(cuda, mode, bits, s, d, masked, clip, 37, d + bits)
+
+
+#: bits 1-5 at the scheme's s = 2^(bits-1) + 1 (the kernel holds the table
+#: in registers) and at another s (in shared memory); d 2048, 2047 (a
+#: ragged last word) and 100; mask none or random; clip or not
+ENCODE_GRID = [(bits, s, d, masked, clip)
+               for bits, ss in ((1, (2,)), (2, (3, 4)), (3, (5, 7)),
+                                (4, (9, 12)), (5, (17, 10)))
+               for s in ss for d in (2048, 2047, 100)
+               for masked in (False, True) for clip in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,s,d,masked,clip", ENCODE_GRID)
+def test_encode_fused_cuda_grid_bit_equal(cuda, bits, s, d, masked, clip):
+    _encode_bit_equal(cuda, "rr", bits, s, d, masked, clip, 37,
+                      ENCODE_GRID.index((bits, s, d, masked, clip)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,d,bits,s,mode", [
+    (1, 2048, 4, 9, "rr"), (1, 37, 3, 5, "rr"), (16, 768, 4, 9, "rr"),
+    (128, 768, 4, 9, "rr"), (16, 768, 1, 2, "bin"), (600, 2048, 4, 9, "rr"),
+    (3000, 2048, 1, 2, "sign"), (400, 2047, 5, 17, "rr"),
+    (300, 2000, 3, 5, "rr"),
+])
+def test_encode_fused_cuda_row_counts(cuda, nb, d, bits, s, mode):
+    """One row, the serving shapes (one-warp blocks) and enough rows for
+    blocks of several warps (fused_encode.encode_grid)."""
+    _encode_bit_equal(cuda, mode, bits, s, d, True, False, nb, nb + d)
 
 
 ATTEND_CASES = {  # name -> (B, T, H, KV, hd, C, softcap, first positions
@@ -87,14 +120,30 @@ ATTEND_CASES = {  # name -> (B, T, H, KV, hd, C, softcap, first positions
     # the serving path's positions: 128-160 of 512
     "split_serve": (8, 1, 12, 12, 64, 512, 0.0,
                     [128, 132, 137, 141, 146, 150, 155, 160]),
+    # head dims padded to the kernel's 32, 64, 128 or 256 (hd 16: command-r
+    # plus's smoke config and whisper-base; 256: gemma2-9b)
+    "hd16": (3, 1, 4, 4, 16, 40, 0.0, [39, 5, 13]),
+    "hd48": (2, 2, 4, 4, 48, 512, 0.0, [300, 40]),
+    "hd80": (2, 1, 8, 2, 80, 300, 0.0, [299, 17]),
+    "hd256": (2, 1, 4, 4, 256, 512, 0.0, [511, 100]),
+    "hd256_gqa4_t2": (2, 2, 8, 2, 256, 300, 0.0, [150, 298]),
+    "hd256_softcap": (1, 3, 4, 4, 256, 200, 5.0, [100]),
+    # head slices that start inside a word at 1, 2, 3 and 5 bits
+    "hd16_bits1": (2, 1, 4, 4, 16, 100, 0.0, [99, 50]),
+    "hd100_bits2": (2, 1, 6, 3, 100, 64, 0.0, [63, 10]),
+    "hd20_bits3": (2, 2, 4, 4, 20, 80, 0.0, [60, 3]),
+    "hd36_bits5": (2, 1, 4, 2, 36, 70, 0.0, [69, 33]),
 }
+#: the page scheme of a case where it is not orq-9 (4 bits)
+ATTEND_SCHEMES = {"hd16_bits1": "bingrad-b", "hd100_bits2": "terngrad",
+                  "hd20_bits3": "orq-5", "hd36_bits5": "orq-17"}
 
 
 def _attend_inputs(case):
     B, T, H, KV, hd, C, cap, first, *band = ATTEND_CASES[case]
     g = _gen(sorted(ATTEND_CASES).index(case))
     d = KV * hd
-    qz = make_quantizer("orq-9", bucket_size=d)
+    qz = make_quantizer(ATTEND_SCHEMES.get(case, "orq-9"), bucket_size=d)
     rows = torch.randn((2, B * C, d), generator=g) * 0.5
     rb = torch.randint(-2 ** 31, 2 ** 31, (2 * B * C, d), generator=g,
                        dtype=torch.int64).to(torch.int32)
@@ -126,12 +175,15 @@ def test_decode_attend_cuda_close(cuda, case):
 
 @pytest.mark.gpu
 def test_decode_attend_cuda_rejects_head_dim(cuda):
-    args, kw = _attend_inputs("decode")
-    q = torch.zeros((3, 1, 2, 48), device=cuda)
-    rest = [t.to(cuda) for t in args[1:]]
-    kw = dict(kw, kv_heads=2)
+    """hd 1..256 run (padded to 32, 64, 128 or 256); hd 320 raises."""
+    B, C = 3, 40
+    q = torch.zeros((B, 1, 1, 320), device=cuda)
+    words = torch.zeros((B, C, 40), dtype=torch.int32, device=cuda)
+    lv = torch.zeros((B, C, 9), device=cuda)
+    mask = torch.ones((B, 1, C), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        fused_kv.decode_attend_cuda(q, *rest, **kw)
+        fused_kv.decode_attend_cuda(q, words, lv, words, lv, mask, bits=4,
+                                    kv_heads=1, scale=1.0)
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

@@ -193,6 +193,28 @@ def test_encode_fused_ref_and_dispatch_match(mode, clip_c):
     np.testing.assert_array_equal(_words(got_ops), want)
 
 
+@pytest.mark.parametrize("nb,d,bits,want", [
+    (16, 768, 4, (1, 48)),        # the serving decode: one warp a block
+    (128, 768, 4, (1, 384)),      # a prefill chunk
+    (16, 768, 1, (1, 16)),
+    (16, 100, 3, (1, 16)),
+    (1, 2048, 4, (1, 8)),
+    (66_058, 2048, 4, (8, 66_058)),   # the training buffer, orq-9
+    (66_058, 2048, 3, (7, 66_058)),
+    (66_058, 2048, 1, (2, 66_058)),
+    (400, 2047, 5, (8, 800)),
+])
+def test_encode_grid(nb, d, bits, want):
+    """(warps a block, blocks) of the encode launch: every word of every
+    row lies in exactly one warp's tile."""
+    warps, blocks = fused_encode.encode_grid(nb, d, bits)
+    assert (warps, blocks) == want
+    assert 1 <= warps <= fused_encode.MAX_WARPS and blocks % nb == 0
+    tiles = -(-encode.packed_words(d, bits) // fused_encode.TILE_WORDS)
+    per_row = blocks // nb
+    assert (per_row - 1) * warps < tiles <= per_row * warps
+
+
 def test_clip_limit_close():
     """σ-clip limits are float-close (row sums add in another order)."""
     v, mask, _ = _data(64, 768, 9)

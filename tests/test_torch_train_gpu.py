@@ -46,8 +46,19 @@ DECODE_CASES = ([(L, 4, 9, 2048) for L in (1, 3, 4)]
                                                      (5, 17))])
 
 
+#: the mean's quads, ragged rows and 16-byte alignment: bits 1-5 at d
+#: 2048, 2047, 300 and 37, L 1, 3 and 4 (33 rows, not a multiple of the 8
+#: rows a block takes); then L at which a block takes one row
+#: (fused_decode.mean_rows: 400 workers of 17 levels) and at which that
+#: row's tables need more than 48 KB of shared memory (800)
+MEAN_CASES = ([(L, bits, s, d) for L in (1, 3, 4)
+               for bits, s in ((1, 2), (2, 3), (3, 5), (4, 9), (5, 17))
+               for d in (2048, 2047, 300, 37)]
+              + [(400, 5, 17, 37), (800, 5, 17, 37)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,bits,s,d", DECODE_CASES)
+@pytest.mark.parametrize("L,bits,s,d", sorted(set(DECODE_CASES + MEAN_CASES)))
 def test_decode_fused_mean_cuda_bit_equal(cuda, L, bits, s, d):
     words, levels = _stack(L, 33, d, bits, s, seed=L * 10 + bits)
     want = fused_decode.decode_fused_mean_plain(words, levels, d=d,
