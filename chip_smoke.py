@@ -14,7 +14,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             ``encode_bingrad_fused`` and ``bingrad_pass`` at the KV shape
             (16 rows of 768) and the training shape, bit-equal on
             multiples of 1/64, elsewhere levels / sums within LEVEL_RTOL
-            and words the exact threshold of the kernel's own levels.
+            and words the exact threshold of the kernel's own levels; the
+            encode's levels also bit-equal to ``kernel_order_levels`` (its
+            order of additions in plain PyTorch) in every case, which
+            include the training buffer cut into rows of 4096 (the block
+            path) and of 2047 (the warp path's 4-byte copies).
             The multi-pass kernels: ``quant_rr`` (s 2, 3, 5, 9, 17),
             ``pack`` and ``unpack`` (bits 1-5), ``dequant_avg`` (L 1, 3,
             4), bit-equal at nb 5 × d 37, nb 1 × d 129 and the training
@@ -58,7 +62,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             replicas in sync. Then device time by category over two steps
             (torch.profiler), beside their unprofiled wall. Then BinGrad-b
             the same way (encode_bingrad_fused 12, mean 5, each 5, qdq 2;
-            34,878,624 wire bytes), and one step of each other scheme
+            34,878,624 wire bytes; its params sha256 printed beside PR
+            16's), and one step of each other scheme
             (bingrad-pb, terngrad, qsgd-5, linear-5, minmax2, signsgd;
             encode 2, mean 1, each 1; the reference's wire bytes).
 8. exchange the smoke-size fused exchange of a buffer of multiples of 1/64
@@ -614,11 +619,13 @@ def _bin_inputs(torch, dev, g, nb, d, dist, masked):
 def check_bingrad(torch, dev):
     """encode_bingrad_fused and bingrad_pass against their plain versions
     on the card, at the serving path's KV shape (16 rows of 768, no mask)
-    and at the training path's shape (66,058 masked buckets of 2048).
+    and at the training path's shape (66,058 masked buckets of 2048; for
+    the encode also the same buffer in rows of 4096 and of 2047).
     Exact cases (q64): levels, words, sums and counts bit-equal.
     Float-close cases: levels within LEVEL_RTOL of the row's max |v|, the
     words exactly the threshold of the kernel's own levels, and the word
-    bits that differ from the plain version's counted."""
+    bits that differ from the plain version's counted. In every case the
+    encode's levels are bit-equal to ``kernel_order_levels``."""
     from repro_torch.kernels import bingrad as bg
     from repro_torch.kernels import fused_bingrad as fb
     from repro_torch.kernels import fused_encode as fe
@@ -631,10 +638,20 @@ def check_bingrad(torch, dev):
         "train_q64_lloyd2": (TRAIN_NB, TRAIN_D, "q64", True, 2, None),
         "train_main_shape": (TRAIN_NB, TRAIN_D, "normal", True, 0, None),
         "train_lloyd2_clip2.5": (TRAIN_NB, TRAIN_D, "normal", True, 2, 2.5),
+        # the same buffer in rows of 4096 and of 2047 (no main path)
+        "train_d4096": (-(-TRAIN_NB * TRAIN_D // 4096), 4096, "normal",
+                        True, 0, None),
+        "train_d2047": (-(-TRAIN_NB * TRAIN_D // 2047), 2047, "normal",
+                        True, 0, None),
     }
+    # the wider rows draw from their own generator, so that every other
+    # case keeps the inputs of earlier runs of this script
+    g_wide = torch.Generator(device="cpu").manual_seed(7)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, (nb, d, dist, masked, li, clip_c) in cases.items():
-        v, mask = _bin_inputs(torch, dev, g, nb, d, dist, masked)
+        gen = g_wide if name in ("train_d4096", "train_d2047") else g
+        v, mask = _bin_inputs(torch, dev, gen, nb, d, dist, masked)
         lim = fe.clip_limit(v, mask, clip_c)
         kern = lambda: fb.encode_bingrad_fused_cuda(v, mask, lim,
                                                     lloyd_iters=li)
@@ -642,7 +659,10 @@ def check_bingrad(torch, dev):
                                                       lloyd_iters=li)
         words, lv = kern()
         want_w, want_l = plain()
+        order = fb.kernel_order_levels(v, mask, lim, lloyd_iters=li)
         torch.cuda.synchronize()
+        order_equal = torch.equal(lv.view(torch.int32),
+                                  order.view(torch.int32))
         exact = dist == "q64" and clip_c is None
         diff = (lv - want_l).abs()
         lv_err = float(diff.max())
@@ -654,7 +674,7 @@ def check_bingrad(torch, dev):
         words_vs_own = _mismatch(torch, words, own)
         flips = int(((words ^ want_w) != 0).sum())
         ok = (words_vs_own == 0 and far_rows <= FLIP_SHARE * nb
-              and lv_err <= FLIP_RTOL * vmax
+              and lv_err <= FLIP_RTOL * vmax and order_equal
               and (not exact or (lv_err == 0.0 and flips == 0)))
         reps = 20 if nb < 1000 else 10
         ms, plain_ms = time_ms(kern, reps=reps, rounds=3), time_ms(
@@ -664,7 +684,9 @@ def check_bingrad(torch, dev):
         b_ms, b_by = bound(moved, float(nb * d * (3 + 3 * (1 + li))))
         results[name] = dict(
             shape=[nb, d], data=dist, mask=masked, lloyd_iters=li,
-            clip_c=clip_c, exact_case=exact, max_abs_err=lv_err,
+            clip_c=clip_c, plan=fb.launch_plan(nb, d, sm)._asdict(),
+            levels_equal_kernel_order=order_equal, exact_case=exact,
+            max_abs_err=lv_err,
             level_tol=tol, level_entries_differ=int((lv != want_l).sum()),
             level_rows_beyond_tol=far_rows,
             words_vs_own_threshold=words_vs_own,
@@ -683,7 +705,7 @@ def check_bingrad(torch, dev):
         if _mismatch(torch, again, words):
             raise AssertionError(f"encode_fused(bin) disagrees with "
                                  f"encode_bingrad_fused on {name}")
-        del v, mask, lim, words, lv, want_w, want_l, own, again
+        del v, mask, lim, words, lv, want_w, want_l, own, again, order
 
     pass_cases = {  # name -> (nb, d, dist, masked)
         "kv_rows16": (16, 768, "normal", False),
@@ -1025,13 +1047,27 @@ def run_train_path(torch):
     return launches, runs["orq9_ef"]["state"]
 
 
+#: BinGrad-b's params sha256 after the runs of ``run_bingrad_train`` as PR
+#: 16's chip runs printed them (NVIDIA H100 80GB HBM3, the same in PRs
+#: 13-16): the encode's levels keep their bits while its kernel changes
+BIN_SHA256_PR16 = {
+    "bingrad_b":
+        "0a8e2c8f4f8ce17058559ee802448f2c181b314fc89d0621225eb4f58246ea30",
+    "bingrad_b_ef":
+        "adf8ebd387d87f2fb434313c8edec9b0d7eb34a2db1c8c83ba275ec8145905e3"}
+
+
 def run_bingrad_train(torch):
-    """BinGrad-b: 3 steps, then 2 with error feedback."""
+    """BinGrad-b: 3 steps, then 2 with error feedback; the params sha256
+    printed beside PR 16's."""
     launches, runs = _train_runs(
         torch, "bingrad-b",
         (("bingrad_b", ["--steps", "3"]),
          ("bingrad_b_ef", ["--steps", "2", "--error-feedback"])),
         BIN_EXPECT, wire_bytes_formula(2))
+    sha = {k: runs[k]["params_sha256"] for k in BIN_SHA256_PR16}
+    emit("train", run="bingrad-b params sha256", sha256=sha,
+         pr16=BIN_SHA256_PR16, equal_pr16=sha == BIN_SHA256_PR16)
     return launches, runs["bingrad_b_ef"]["state"]
 
 
@@ -1602,7 +1638,10 @@ def main() -> int:
             L4=shape_of(dec["decode_fused_each/L4"])),
         row("encode_bingrad_fused", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/fused_bingrad.py:102",
-            bgr["train_main_shape"], kv_shape=shape_of(bgr["kv_rows16"])),
+            bgr["train_main_shape"], kv_shape=shape_of(bgr["kv_rows16"]),
+            lloyd2_clip=shape_of(bgr["train_lloyd2_clip2.5"]),
+            d4096=shape_of(bgr["train_d4096"]),
+            d2047=shape_of(bgr["train_d2047"])),
         row("bingrad_pass", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/bingrad.py:52", bgr["pass/train_main_shape"],
             kv_shape=shape_of(bgr["pass/kv_rows16"]),

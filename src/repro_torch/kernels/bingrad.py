@@ -11,7 +11,9 @@ PyTorch version (``ref.bingrad_pass_ref``).
 
 Parity: the assignment is exact; the sums are float-close across
 summation orders (exact on values whose partial sums are exact in
-float32); the counts are exact.
+float32), and NaN where the reference's are (its v * lo and v * hi take
+a NaN or an infinity from a slot left out of the sum); the counts are
+exact.
 """
 from __future__ import annotations
 

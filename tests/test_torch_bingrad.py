@@ -183,6 +183,164 @@ def test_encode_bingrad_degenerate_rows():
     np.testing.assert_array_equal(lv.numpy()[:2], np.asarray(jl)[:2])
 
 
+# ---------------------------------------------------------------------------
+# the CUDA kernel's order of additions and its launch plan
+# ---------------------------------------------------------------------------
+
+ORDER_DS = (1, 31, 33, 300, 768, 2048)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("lloyd_iters", [0, 2])
+@pytest.mark.parametrize("d", ORDER_DS)
+def test_kernel_order_levels_exact_on_q64(d, lloyd_iters, masked):
+    """On multiples of 1/64 every order gives the same sums: the kernel's
+    order is bit-equal to the plain version and to the reference's Pallas
+    kernel (interpret mode)."""
+    v, mask = _data(12, d, 3 * d + lloyd_iters, "q64", masked)
+    m = _t(mask) if masked else None
+    got = fused_bingrad.kernel_order_levels(_t(v), m, None,
+                                            lloyd_iters=lloyd_iters)
+    _, plain = fused_bingrad.encode_bingrad_fused_plain(
+        _t(v), m, None, lloyd_iters=lloyd_iters)
+    _, jl = jfused_bingrad.encode_bingrad_fused(
+        jnp.asarray(v), jnp.asarray(mask), lloyd_iters=lloyd_iters,
+        interpret=True)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("clip_c", [None, 2.5])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("lloyd_iters", [0, 2])
+@pytest.mark.parametrize("d", ORDER_DS)
+@pytest.mark.parametrize("dist", ["normal", "laplace"])
+def test_kernel_order_levels_close(dist, d, lloyd_iters, masked, clip_c):
+    """Elsewhere the kernel's order is float-close to the plain version's:
+    within RTOL of the row's max |v| (the clip limit injected into both)."""
+    v, mask = _data(12, d, 5 * d + lloyd_iters, dist, masked)
+    m = _t(mask) if masked else None
+    lim = fused_encode.clip_limit(_t(v), m, clip_c)
+    got = fused_bingrad.kernel_order_levels(_t(v), m, lim,
+                                            lloyd_iters=lloyd_iters)
+    _, plain = fused_bingrad.encode_bingrad_fused_plain(
+        _t(v), m, lim, lloyd_iters=lloyd_iters)
+    tol = RTOL * np.abs(np.where(mask, v, 0)).max(axis=1, keepdims=True)
+    assert np.all(np.abs(got.numpy() - plain.numpy()) <= tol)
+
+
+def _nan_inf_rows(d, seed):
+    """Rows with a NaN in a valid slot, a NaN in a masked slot, +inf, both
+    infinities, -inf, and ordinary rows after them."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((8, d)) * 0.3).astype(np.float32)
+    mask = rng.random((8, d)) >= 0.1
+    c = min(5, d - 1)
+    v[0, c], mask[0, c] = np.nan, True
+    v[1, c], mask[1, c] = np.nan, False
+    v[2, c], mask[2, c] = np.inf, True
+    v[3, 0], v[3, c], mask[3, [0, c]] = -np.inf, np.inf, True
+    v[4, c], mask[4, c] = -np.inf, True
+    return v, mask
+
+
+@pytest.mark.parametrize("clip_c", [None, 2.5])
+@pytest.mark.parametrize("lloyd_iters", [0, 2])
+@pytest.mark.parametrize("d", [1, 33, 768, 2048])
+def test_kernel_order_levels_nan_and_inf(d, lloyd_iters, clip_c):
+    """NaN and infinite values give the reference's levels in the kernel's
+    order too: its sums take v * m and v * lo, so a NaN or infinity in a
+    slot left out of a sum (masked, or on the other side of b0) makes that
+    sum NaN; the plain version, and the reference's Pallas kernel in
+    interpret mode, agree (NaN where NaN, the rest within RTOL)."""
+    v, mask = _nan_inf_rows(d, d + lloyd_iters)
+    lim = fused_encode.clip_limit(_t(v), _t(mask), clip_c)
+    got = fused_bingrad.kernel_order_levels(_t(v), _t(mask), lim,
+                                            lloyd_iters=lloyd_iters)
+    _, plain = fused_bingrad.encode_bingrad_fused_plain(
+        _t(v), _t(mask), lim, lloyd_iters=lloyd_iters)
+    _, jl = jfused_bingrad.encode_bingrad_fused(
+        jnp.asarray(v), jnp.asarray(mask), clip_c=clip_c,
+        lloyd_iters=lloyd_iters, interpret=True)
+    finite = np.where(mask & np.isfinite(v), np.abs(v), 0).max()
+    for want in (plain, _t(jl)):
+        torch.testing.assert_close(got, want, rtol=0, atol=RTOL * finite,
+                                   equal_nan=True)
+    assert bool(got[0].isnan().all() and got[1].isnan().all())
+
+
+@pytest.mark.parametrize("d", [33, 768])
+def test_bingrad_pass_plain_nan_and_inf(d):
+    """The pass on NaN and infinite values: the reference's sums v * lo and
+    v * hi are NaN when a left-out slot holds one; the assignment and the
+    counts are exact."""
+    v, mask = _nan_inf_rows(d, d)
+    b0 = np.full((8, 1), 0.1, np.float32)
+    ji, jp = jbingrad.bingrad_pass(jnp.asarray(v), jnp.asarray(b0),
+                                   jnp.asarray(mask), interpret=True)
+    ti, tp = bingrad.bingrad_pass_plain(_t(v), _t(b0), _t(mask))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tp.numpy()[:, 1::2], np.asarray(jp)[:, 1::2])
+    finite = np.where(mask & np.isfinite(v), np.abs(v), 0).sum(axis=1).max()
+    torch.testing.assert_close(tp, _t(np.asarray(jp)), rtol=0,
+                               atol=RTOL * finite, equal_nan=True)
+    assert bool(tp[:2, 0::2].isnan().all())
+
+
+PLAN_NBS = (1, 2, 16, 131, 133, 1057, 66_058)
+
+
+@pytest.mark.parametrize("d,path", [(1, "warp_async"), (767, "warp_async"),
+                                    (768, "warp_bulk"), (2047, "warp_async"),
+                                    (2048, "warp_bulk"), (2049, "block"),
+                                    (8192, "block")])
+@pytest.mark.parametrize("nb", PLAN_NBS)
+def test_launch_plan_walks_every_row_once(nb, d, path):
+    plan = fused_bingrad.launch_plan(nb, d, 132)
+    assert plan.path == path
+    rows = fused_bingrad.walked_rows(plan, nb)
+    assert torch.equal(torch.sort(rows).values, torch.arange(nb))
+    if path == "block":
+        assert plan.grid == nb
+        assert plan.warps * 32 == fused_bingrad.block_threads(d)
+        return
+    assert 1 <= plan.warps <= fused_bingrad.WARP_MAX_WARPS
+    if nb <= 132:           # few rows: a block and an SM each
+        assert plan.warps == 1 and plan.grid == nb
+    # the persistent grid fits the SMs at once; a stage holds a row
+    stage = plan.shared_bytes // plan.warps
+    resident = min(fused_bingrad.SM_SHARED_BYTES // (plan.shared_bytes
+                                                     + 1024),
+                   fused_bingrad.WARPS_PER_SM // plan.warps)
+    assert plan.grid <= 132 * resident
+    assert stage == 40 * fused_bingrad.block_threads(d) + 128 >= 5 * d + 128
+
+
+def test_launch_plan_takes_every_width():
+    """Every d in 1..MAX_D gets a path within the card's limits: a warp
+    path up to WARP_MAX_D (bulk copies where d is a multiple of 16 and the
+    tensors start on 16 bytes, 4-byte copies where they start on 4), the
+    block path (nt <= 1024 threads) after and for mask bytes off a 4-byte
+    boundary; no block needs more shared memory than the default 48 KB."""
+    for d in range(1, fused_bingrad.MAX_D + 1):
+        for nb in (16, 1057, 66_058):
+            for align in (16, 4, 1):
+                plan = fused_bingrad.launch_plan(nb, d, 132, align)
+                if d > fused_bingrad.WARP_MAX_D or align < 4:
+                    want = "block"
+                elif align == 16 and d % 16 == 0:
+                    want = "warp_bulk"
+                else:
+                    want = "warp_async"
+                assert plan.path == want
+                assert plan.warps * 32 <= 1024 and plan.grid >= 1
+                assert 0 <= plan.shared_bytes <= \
+                    fused_bingrad.SHARED_BYTES_DEFAULT
+    for d in (0, fused_bingrad.MAX_D + 1):
+        with pytest.raises(ValueError, match="no launch"):
+            fused_bingrad.launch_plan(16, d, 132)
+
+
 @pytest.mark.parametrize("dist,d,masked", [("q64", 2048, True),
                                            ("q64", 300, False),
                                            ("normal", 768, True),

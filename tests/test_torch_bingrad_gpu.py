@@ -23,6 +23,9 @@ Tolerances, with their reasons:
   kernel's own levels bit for bit, and a word bit may differ from the
   plain version's only at an element within that tolerance of the
   threshold.
+* The kernel's own order: on every input its levels are bit-equal to
+  ``kernel_order_levels``, the same additions in plain PyTorch on the CPU,
+  and the warp path's levels and words to the block path's.
 """
 import numpy as np
 import pytest
@@ -169,6 +172,227 @@ def test_bingrad_pass_cuda(cuda, dist, d, masked):
         tol = LEVEL_RTOL * v.abs().sum(dim=1)
         assert bool(((got_p[:, 0::2] - want_p[:, 0::2]).abs()
                      <= tol[:, None]).all())
+
+
+ORDER_DS = (1, 31, 32, 33, 300, 767, 768, 2047, 2048, 2049, 4096, 8192)
+NBS = (1, 2, 131, 133, 1057)
+ORDER_CASES = [(d, li, masked, clip_c)
+               for d in ORDER_DS for li in (0, 1, 3)
+               for masked, clip_c in ((False, None), (True, None),
+                                      (False, 2.5), (True, 1.7))]
+
+
+def _bits_of(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _order_data(nb, d, seed, dist, masked):
+    """``_data`` plus rows whose sums are ±0: every value -0.0; values that
+    cancel exactly (a q64 row and its negation); and -0.0 at every other
+    column beside values of 0.5 and more, so that the side below b0 holds
+    only -0.0."""
+    v, mask = _data(nb, d, seed, dist, masked)
+    if nb >= 6:
+        v[3] = -0.0
+        q = torch.from_numpy(np.random.default_rng(seed).integers(
+            -64, 65, (d + 1) // 2).astype(np.float32) / 64)
+        v[4] = torch.cat([q, -q])[:d] if d % 2 == 0 else torch.cat(
+            [q[:-1], -q[:-1], q[-1:] * 0])
+        cols = torch.arange(d)
+        v[5] = torch.where(cols % 2 == 0, -0.0,
+                           0.5 + q.abs().repeat(2)[:d] / 2)
+    return v, mask
+
+
+def _plan_of(path, nb, d):
+    """The plan of ``path`` for nb rows of d as the wrapper would take it:
+    "block" at any d, "warp_async" (4-byte copies) at d <= 2048."""
+    if path == "block":
+        return fused_bingrad.LaunchPlan(
+            "block", fused_bingrad.block_threads(d) // 32, nb, 0)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return fused_bingrad.launch_plan(nb, d, sm, align=4)
+
+
+def _encode_with(plan, v, mask, lim, lloyd_iters):
+    nb, d = v.shape
+    words = torch.empty((nb, encode.packed_words(d, 1)), dtype=torch.int32,
+                        device=v.device)
+    levels = torch.empty((nb, 2), dtype=torch.float32, device=v.device)
+    fused_bingrad._launch(v, mask, lim, words, levels, lloyd_iters, plan)
+    return words, levels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(ORDER_CASES)))
+def test_encode_bingrad_cuda_levels_equal_kernel_order(cuda, case):
+    """Levels bit-equal (±0 included) to ``kernel_order_levels`` on the CPU,
+    on normal, laplace and q64 data; words the threshold of those levels;
+    at d <= 2048 the warp path the wrapper takes (bulk copies where d is a
+    multiple of 16, else 4-byte copies), the 4-byte copies' path and the
+    block path bit-equal on the same inputs. nb cycles through NBS (up to
+    133 rows past the warp paths' widths)."""
+    d, li, masked, clip_c = ORDER_CASES[case]
+    nbs = NBS if d <= fused_bingrad.WARP_MAX_D else NBS[:4]
+    nb = nbs[case % len(nbs)]
+    for k, dist in enumerate(("normal", "laplace", "q64")):
+        v, mask = _order_data(nb, d, 7 * case + k, dist, masked)
+        lim = fused_encode.clip_limit(v, mask, clip_c)
+        want = fused_bingrad.kernel_order_levels(v, mask, lim,
+                                                 lloyd_iters=li)
+        args = _to(cuda, v, mask, lim)
+        got_w, got_l = fused_bingrad.encode_bingrad_fused_cuda(
+            *args, lloyd_iters=li)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits_of(got_l.cpu()), _bits_of(want)), dist
+        assert torch.equal(got_w.cpu(),
+                           _threshold_words(v, mask, lim, got_l.cpu()))
+        if d <= fused_bingrad.WARP_MAX_D:
+            for path in ("warp_async", "block"):
+                w, lv = _encode_with(_plan_of(path, nb, d), *args, li)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits_of(lv), _bits_of(got_l)), path
+                assert torch.equal(w, got_w), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [768, 2047, 2048])
+@pytest.mark.parametrize("mask_offset,path", [(4, "warp_async"),
+                                              (1, "block")])
+def test_encode_bingrad_cuda_unaligned_tensors(cuda, d, mask_offset, path):
+    """Tensors that start off a 16-byte boundary cannot take bulk copies:
+    values one float and mask bytes 4 bytes past one take the 4-byte
+    copies, mask bytes 1 byte past one the block path; the same levels
+    and words as from aligned tensors, on every row (the last row's mask
+    window ends at the tensor's end)."""
+    v, mask = _order_data(133, d, d, "normal", True)
+    want_w, want_l = fused_bingrad.encode_bingrad_fused_cuda(
+        *_to(cuda, v, mask), None)
+    vbuf = torch.empty(133 * d + 1, device=cuda)
+    mbuf = torch.zeros(133 * d + mask_offset, dtype=torch.bool, device=cuda)
+    vo = vbuf[1:].view(133, d)
+    mo = mbuf[mask_offset:].view(133, d)
+    vo.copy_(v)
+    mo.copy_(mask)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    align = min(16, *(p & -p for p in (vo.data_ptr(), mo.data_ptr())))
+    assert fused_bingrad.launch_plan(133, d, sm, align).path == path
+    got_w, got_l = fused_bingrad.encode_bingrad_fused_cuda(vo, mo, None)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits_of(got_l), _bits_of(want_l))
+    assert torch.equal(got_w, want_w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [31, 768, 2048, 4096])
+@pytest.mark.parametrize("lloyd_iters", [0, 2])
+def test_encode_bingrad_cuda_degenerate_rows(cuda, d, lloyd_iters):
+    """Constant row: both levels the constant, every bit set. All-masked
+    row: levels 0, words 0. One-sided row: both levels inside its range.
+    Every value -0.0: the sums start at +0, so the levels are +0 and every
+    bit is set (-0 >= +0). Exactly cancelling values: b0 = 0. -0.0 below
+    b0 and nothing else: the lower level is +0. All bit-equal to
+    ``kernel_order_levels``."""
+    v, mask = _order_data(8, d, d + lloyd_iters, "q64", True)
+    mask[0] = mask[2] = mask[3] = mask[4] = mask[5] = True
+    got_w, got_l = fused_bingrad.encode_bingrad_fused_cuda(
+        *_to(cuda, v, mask), None, lloyd_iters=lloyd_iters)
+    torch.cuda.synchronize()
+    got_w, got_l = got_w.cpu(), got_l.cpu()
+    want = fused_bingrad.kernel_order_levels(v, mask, None,
+                                             lloyd_iters=lloyd_iters)
+    assert torch.equal(_bits_of(got_l), _bits_of(want))
+    assert torch.equal(got_w, _threshold_words(v, mask, None, got_l))
+    bits = _bits(got_w, d)
+    assert got_l[0].tolist() == [0.25, 0.25] and bool(bits[0].all())
+    assert got_l[1].tolist() == [0.0, 0.0] and not bool(bits[1].any())
+    assert float(v[2].min()) <= float(got_l[2, 0]) <= float(got_l[2, 1]) \
+        <= float(v[2].max())
+    assert _bits_of(got_l[3]).tolist() == [0, 0] and bool(bits[3].all())
+    if d > 1:     # the side below b0 holds only -0.0: its mean is +0
+        assert int(_bits_of(got_l[5])[0]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip_c", [None, 2.5])
+@pytest.mark.parametrize("lloyd_iters", [0, 2])
+@pytest.mark.parametrize("d", [33, 768, 2047, 2048, 4096])
+def test_encode_bingrad_cuda_nan_and_inf(cuda, d, lloyd_iters, clip_c):
+    """Rows with NaN (valid and masked) and infinite values take the exact
+    sweep, which adds the reference's terms v * m, v * lo and v * hi of
+    every slot: levels bit-equal to ``kernel_order_levels`` (NaN where the
+    reference's are NaN; a NaN level equal to a NaN level), words the
+    threshold of those levels."""
+    rng = np.random.default_rng(d + lloyd_iters)
+    v = torch.from_numpy((rng.standard_normal((8, d)) * 0.3)
+                         .astype(np.float32))
+    mask = torch.from_numpy(rng.random((8, d)) >= 0.1)
+    c = min(5, d - 1)
+    v[0, c], mask[0, c] = float("nan"), True
+    v[1, c], mask[1, c] = float("nan"), False
+    v[2, c], mask[2, c] = float("inf"), True
+    v[3, 0], v[3, c], mask[3, 0], mask[3, c] = (float("-inf"), float("inf"),
+                                                True, True)
+    v[4, c], mask[4, c] = float("-inf"), True
+    lim = fused_encode.clip_limit(v, mask, clip_c)
+    got_w, got_l = fused_bingrad.encode_bingrad_fused_cuda(
+        *_to(cuda, v, mask, lim), lloyd_iters=lloyd_iters)
+    torch.cuda.synchronize()
+    got_w, got_l = got_w.cpu(), got_l.cpu()
+    want = fused_bingrad.kernel_order_levels(v, mask, lim,
+                                             lloyd_iters=lloyd_iters)
+    same = (_bits_of(got_l) == _bits_of(want)) | (got_l.isnan()
+                                                  & want.isnan())
+    assert bool(same.all())
+    assert torch.equal(got_w, _threshold_words(v, mask, lim, got_l))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [33, 768, 4096])
+def test_bingrad_pass_cuda_nan_and_inf(cuda, d):
+    """The pass on NaN and infinite values (valid and masked): assignment
+    and counts exact, sums NaN where the plain version's are (a left-out
+    NaN or infinity), else within LEVEL_RTOL of the row's finite |v| sum."""
+    rng = np.random.default_rng(d)
+    v = torch.from_numpy((rng.standard_normal((8, d)) * 0.3)
+                         .astype(np.float32))
+    mask = torch.from_numpy(rng.random((8, d)) >= 0.1)
+    c = min(5, d - 1)
+    v[0, c], mask[0, c] = float("nan"), True
+    v[1, c], mask[1, c] = float("nan"), False
+    v[2, c], mask[2, c] = float("inf"), True
+    v[3, c], mask[3, c] = float("-inf"), False
+    b0 = torch.full((8, 1), 0.1)
+    want_i, want_p = bingrad.bingrad_pass_plain(v, b0, mask)
+    got_i, got_p = bingrad.bingrad_pass_cuda(*_to(cuda, v, b0, mask))
+    torch.cuda.synchronize()
+    got_i, got_p = got_i.cpu(), got_p.cpu()
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_p[:, 1::2], want_p[:, 1::2])
+    finite = torch.where(mask & v.isfinite(), v.abs(), 0.0).sum(1).max()
+    torch.testing.assert_close(got_p, want_p, rtol=0,
+                               atol=LEVEL_RTOL * float(finite),
+                               equal_nan=True)
+    assert bool(got_p[[0, 1, 3]][:, 0::2].isnan().all())
+    assert bool(got_p[2, 0].isnan()) and float(got_p[2, 2]) == float("inf")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", NBS + (16, 66_058 // 50))
+def test_encode_bingrad_cuda_every_row_once(cuda, nb):
+    """Each row's words and levels are its own: row r holds (r + 1) / 64 on
+    its first r % 97 + 1 columns and zeros after, so a row written twice
+    or by another row's warp shows, whatever the grid's walk."""
+    d = 768
+    r = torch.arange(nb)[:, None]
+    v = torch.where(torch.arange(d)[None] <= r % 97, (r + 1) / 64, 0.0)
+    got_w, got_l = fused_bingrad.encode_bingrad_fused_cuda(v.to(cuda), None,
+                                                           None)
+    torch.cuda.synchronize()
+    want = fused_bingrad.kernel_order_levels(v, None, None)
+    assert torch.equal(_bits_of(got_l.cpu()), _bits_of(want))
+    assert torch.equal(got_w.cpu(), _threshold_words(v, None, None,
+                                                     got_l.cpu()))
 
 
 @pytest.mark.gpu
