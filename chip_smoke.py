@@ -36,6 +36,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             timed at the training path's shape (66,058 buckets of 2048):
             ``encode_fused`` at 4, 1 and 3 bits, both decodes at 4 and at
             1 bit and at L = 4 (4 workers' chunks of 16,515 rows).
+            Then ``encode_fused``, ``qdq_fused``, both decodes (L = 1 and
+            4) and ``encode_bingrad_fused`` at the shapes only the
+            per-leaf and pipelined schedules give them: one row of 768,
+            one row of 192, 5 rows of 2048 with 1024 valid in the last,
+            and the last K = 4 span (16,514 rows, 768 valid in the last),
+            by the same rules.
 4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
@@ -78,6 +84,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             counts of each call and both paths' times. (The four kernels
             are checked and timed in phase 3: torch.profiler has been
             seen to lose kernel events late in this long process.)
+10. train_pipelined  the launcher with ``--pipeline-chunks 4``: orq-9 and
+            BinGrad-b, 3 steps then 2 with error feedback, and orq-9's 3
+            steps at K = 3: params sha256 equal to the K = 1 runs of
+            phase 7, 4K collective launches a step, the same wire bytes,
+            the kernels' launch counts (encode 8 a step at K = 4, ...).
+11. train_per_leaf   the launcher with ``--per-leaf-exchange``: orq-9 and
+            BinGrad-b, one step then one with error feedback: 48
+            collective launches a step, 140,043,800 / 34,878,832 wire
+            bytes, 24 encodes, 12 decodes of each kind and 12 qdq a step.
+            Then the per-leaf exchange and its EF residuals of five leaves
+            of the full-width gradient (final_norm, wq, the FFN's wo,
+            norm1, norm2) on the 1/64 grid, card (NCCL) against CPU
+            (gloo).
+12. theory  ``scheme_mse`` of the full-width gradient for every scheme,
+            timed on the card; its first 1024 buckets on the card and on
+            the CPU within THEORY_RTOL.
+13. train_local  two steps of the single-device step (no collective)
+            for orq-9 and BinGrad-b with error feedback: finite losses,
+            step times. Before it (in phase 12's process group, which it
+            does not use): the same step, fused and per leaf, on a model
+            whose gradient is fixed (the leaves of phase 11 but wo on the
+            1/64 grid), card against CPU over two steps, the second with
+            the first's residual: step 1 bit-equal, step 2 within
+            LOCAL_RESIDUAL_RTOL / LOCAL_UPDATE_RTOL.
+14. serve_dense  the launcher without ``--kv-quant`` (the dense
+            ring-buffer path) on full-width lm-100m, batch 8, prompt 128,
+            32 new tokens, context 512, chunk 64, then the bf16 paged
+            engine on the same prompts: equal greedy tokens; prefill and
+            decode tok/s, step p50 / p99, cache bytes, tokens sha256;
+            then device time by category over four dense decode steps.
+            Phases 12-14 are plain PyTorch, as in the reference: every
+            counter must read 0 after them.
 
 Then the kernels JSON line (all eleven kernels), the ``nvidia-smi``
 name/power line, and last
@@ -210,6 +248,17 @@ def _category(kernel_name: str) -> str:
     if "<long" in n:
         return "int64_elementwise"
     return "other"
+
+
+def _by_category(rows):
+    """Device us and launches by ``_category`` of profile rows."""
+    by_cat = {}
+    for us, name, count in rows:
+        c = by_cat.setdefault(_category(name), {"device_us": 0.0,
+                                                "launches": 0})
+        c["device_us"] += us
+        c["launches"] += count
+    return by_cat
 
 
 def nbytes(*ts) -> int:
@@ -949,12 +998,7 @@ def profile_decode(torch, eng):
         time.sleep(PROFILE_PAD_S)
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
-    by_cat = {}
-    for us, name, count in rows:
-        c = by_cat.setdefault(_category(name), {"device_us": 0.0,
-                                                "launches": 0})
-        c["device_us"] += us
-        c["launches"] += count
+    by_cat = _by_category(rows)
     emit("profile", scheme=eng.cfg.kv_quant, window="4 decode steps, batch 8",
          wall_ms_unprofiled=plain_wall * 1e3, wall_ms_profiled=wall * 1e3,
          device_us=total, kernel_launches=sum(r[2] for r in rows),
@@ -1039,12 +1083,14 @@ def _train_runs(torch, quant, runs, expect, wire):
 
 def run_train_path(torch):
     """3 orq-9 steps, then 2 with error feedback, through the launcher on
-    the world of one that main() started."""
+    the world of one that main() started; -> (launches, the last state,
+    each run's params sha256)."""
     launches, runs = _train_runs(
         torch, "orq-9", (("orq9", ["--steps", "3"]),
                          ("orq9_ef", ["--steps", "2", "--error-feedback"])),
         TRAIN_EXPECT, TRAIN_WIRE_BYTES)
-    return launches, runs["orq9_ef"]["state"]
+    sha = {k: r["params_sha256"] for k, r in runs.items()}
+    return launches, runs["orq9_ef"]["state"], sha
 
 
 #: BinGrad-b's params sha256 after the runs of ``run_bingrad_train`` as PR
@@ -1059,7 +1105,8 @@ BIN_SHA256_PR16 = {
 
 def run_bingrad_train(torch):
     """BinGrad-b: 3 steps, then 2 with error feedback; the params sha256
-    printed beside PR 16's."""
+    printed beside the recorded digests; -> (launches, the last state,
+    each run's params sha256)."""
     launches, runs = _train_runs(
         torch, "bingrad-b",
         (("bingrad_b", ["--steps", "3"]),
@@ -1068,7 +1115,7 @@ def run_bingrad_train(torch):
     sha = {k: runs[k]["params_sha256"] for k in BIN_SHA256_PR16}
     emit("train", run="bingrad-b params sha256", sha256=sha,
          pr16=BIN_SHA256_PR16, equal_pr16=sha == BIN_SHA256_PR16)
-    return launches, runs["bingrad_b_ef"]["state"]
+    return launches, runs["bingrad_b_ef"]["state"], sha
 
 
 def run_other_schemes(torch):
@@ -1120,12 +1167,7 @@ def profile_train(torch, state, quant="orq-9"):
         time.sleep(PROFILE_PAD_S)
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
-    by_cat = {}
-    for us, name, count in rows:
-        c = by_cat.setdefault(_category(name), {"device_us": 0.0,
-                                                "launches": 0})
-        c["device_us"] += us
-        c["launches"] += count
+    by_cat = _by_category(rows)
     emit("train_profile", scheme=quant,
          window=f"2 steps, lm-100m {quant} + EF, batch 8 x 128",
          wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
@@ -1364,14 +1406,10 @@ def _mp_quantizer(name):
     return make_quantizer(name)
 
 
-def full_width_gradient(torch, dev):
-    """The flat gradient of one full-width lm-100m step (f32 weights from
-    seed 0, batch 8 × 128 of the synthetic stream), laid out by
-    ``GradLayout`` and cut into buckets of 2048: the buffer the main
-    path's exchange encodes."""
+def full_width_grads(torch, dev):
+    """(gradient tree, loss) of one full-width lm-100m step (f32 weights
+    from seed 0, batch 8 × 128 of the synthetic stream)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.core import buckets
-    from repro_torch.core.comm.exchange import GradLayout
     from repro_torch.data import SyntheticLM
     from repro_torch.models import LM
     from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
@@ -1383,13 +1421,22 @@ def full_width_gradient(torch, dev):
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, _ = model.loss(p, batch)
     grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(p)))
-    flat = GradLayout.from_tree(params).flatten(grads)
-    del p, grads, params
+    return grads, float(loss.detach())
+
+
+def full_width_gradient(torch, grads_loss):
+    """The full-width gradient laid out by ``GradLayout`` and cut into
+    buckets of 2048: the buffer the main path's exchange encodes."""
+    from repro_torch.core import buckets
+    from repro_torch.core.comm.exchange import GradLayout
+
+    grads, loss = grads_loss
+    flat = GradLayout.from_tree(grads).flatten(grads)
     if flat.numel() != TRAIN_N or not bool(torch.isfinite(flat).all()):
         raise AssertionError(f"gradient of {flat.numel()} values, finite "
                              f"{bool(torch.isfinite(flat).all())}")
     bkt, mask = buckets.to_buckets(flat, TRAIN_D)
-    return bkt, mask, float(loss.detach())
+    return bkt, mask, loss
 
 
 def _events_ms(torch, fn) -> float:
@@ -1419,7 +1466,7 @@ def _counted(torch, fn, want, totals, what):
     return out, {k: n for k, n in got.items() if n}
 
 
-def run_multipass_path(torch, dev):
+def run_multipass_path(torch, dev, grads_loss):
     """Every scheme's multi-pass encode and decodes at full width on
     lm-100m's gradient, against the fused path: encode bit-equal (for
     BinGrad-b the levels within LEVEL_RTOL / FLIP_SHARE, the words the
@@ -1430,7 +1477,7 @@ def run_multipass_path(torch, dev):
     from repro_torch.core.comm import wire
     from repro_torch.kernels import fused_encode as fe
 
-    bkt, mask, loss = full_width_gradient(torch, dev)
+    bkt, mask, loss = full_width_gradient(torch, grads_loss)
     emit("multipass", what="full-width lm-100m gradient", loss=loss,
          buckets=list(bkt.shape), valid=int(mask.sum()),
          abs_max=float(bkt.abs().max()))
@@ -1520,6 +1567,552 @@ def run_multipass_path(torch, dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phases 10-15: the exchange schedules, the single-device step, theory and
+# the dense serve path
+# ---------------------------------------------------------------------------
+
+#: shapes the per-leaf and pipelined schedules give the kernels, which no
+#: other path gives them: name -> (rows, d, valid values in the last row)
+SCHEDULE_SHAPES = {
+    "row768": (1, 768, 768),            # final_norm, per leaf at L = 1
+    "row192": (1, 192, 192),            # final_norm's chunk at L = 4
+    "rows5_last1024": (5, 2048, 1024),  # a (12, 768) norm leaf at L = 1
+    "span_k4_last": (16_514, 2048, 768),  # the last K = 4 span at L = 1
+}
+
+
+def check_schedule_shapes(torch, dev):
+    """encode_fused, qdq_fused, decode_fused_mean / _each (L = 1 and 4)
+    and encode_bingrad_fused at SCHEDULE_SHAPES against their plain
+    versions, with the rules of the phases above: bit-equal by value;
+    BinGrad-b's levels bit-equal to ``kernel_order_levels``, within
+    LEVEL_RTOL of the plain fit (bit-equal on multiples of 1/64), its
+    words the exact threshold of its own levels."""
+    from repro_torch.core import encode
+    from repro_torch.core import levels as lvmod
+    from repro_torch.kernels import fused_bingrad as fb
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import fused_encode as fe
+
+    g = torch.Generator(device="cpu").manual_seed(10)
+    failed = []
+    for case, (nb, d, last) in SCHEDULE_SHAPES.items():
+        mask = (torch.arange(nb * d, device=dev) < (nb - 1) * d + last
+                ).reshape(nb, d)
+        v = torch.where(mask, (torch.randn((nb, d), generator=g)
+                               * 1e-3).to(dev), 0.0)
+        lv = lvmod.orq_levels(v, mask, 3)
+        rb = _rand_words(torch, g, (nb, d)).to(dev)
+        args = (v, lv, rb, mask, None)
+        words = fe.encode_fused_cuda(*args, bits=4)
+        res = {"encode_fused": _mismatch(
+                   torch, words, fe.encode_fused_plain(*args, bits=4)),
+               "qdq_fused": _mismatch(
+                   torch, fe.qdq_fused_cuda(*args, mode="rr"),
+                   fe.qdq_fused_plain(*args, mode="rr"))}
+        for L in (1, 4):
+            ws = torch.cat([words[None], _rand_words(
+                torch, g, (L - 1, nb, encode.packed_words(d, 4))).to(dev)])
+            lvs = torch.cat([lv[None], torch.sort(torch.randn(
+                (L - 1, nb, 9), generator=g) * 1e-3).values.to(dev)])
+            for kname, plain, cuda in (
+                    ("decode_fused_mean", fd.decode_fused_mean_plain,
+                     fd.decode_fused_mean_cuda),
+                    ("decode_fused_each", fd.decode_fused_each_plain,
+                     fd.decode_fused_each_cuda)):
+                res[f"{kname}/L{L}"] = _mismatch(
+                    torch, cuda(ws, lvs, d=d, bits=4),
+                    plain(ws, lvs, d=d, bits=4))
+        for dist in ("q64", "normal"):
+            vb = v if dist == "normal" else torch.where(mask, (torch.randint(
+                -64, 65, (nb, d), generator=g).float() / 64).to(dev), 0.0)
+            bw, blv = fb.encode_bingrad_fused_cuda(vb, mask, None)
+            _, want_l = fb.encode_bingrad_fused_plain(vb, mask, None)
+            order = fb.kernel_order_levels(vb, mask, None)
+            own = fe.encode_fused_plain(vb, blv, None, mask, None, bits=1,
+                                        mode="bin")
+            err = float((blv - want_l).abs().max())
+            tol = 0.0 if dist == "q64" else LEVEL_RTOL * float(
+                vb.abs().max())
+            res[f"encode_bingrad_fused/{dist}"] = dict(
+                levels_equal_kernel_order=torch.equal(
+                    blv.view(torch.int32), order.view(torch.int32)),
+                level_err=err, level_tol=tol,
+                words_vs_own_threshold=_mismatch(torch, bw, own))
+        emit("kernel", case=f"schedule_{case}", shape=[nb, d],
+             valid_last_row=last, mismatched=res)
+        bad = [k for k, m in res.items() if (
+            m if isinstance(m, int) else not (
+                m["levels_equal_kernel_order"] and m["level_err"]
+                <= m["level_tol"] and m["words_vs_own_threshold"] == 0))]
+        if bad:
+            failed.append((case, bad))
+        del v, mask, lv, rb, words
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at the schedules' shapes: {failed}")
+
+
+def run_pipelined_train(torch, k1_sha):
+    """The pipelined exchange through the launcher: orq-9 and BinGrad-b,
+    3 steps then 2 with error feedback, at K = 4, and orq-9's 3 steps at
+    K = 3. The params sha256 of each run equals the K = 1 run's of the
+    same arguments (``k1_sha``), collective launches are 4K a step and the
+    wire bytes are unchanged; every counter is zeroed just before and read
+    just after each scheme's runs."""
+    total, failed = {}, []
+    plan = (
+        ("orq-9", 4, (("orq9", ["--steps", "3"]),
+                      ("orq9_ef", ["--steps", "2", "--error-feedback"])),
+         {"encode_fused": 40, "decode_fused_mean": 20,
+          "decode_fused_each": 20, "qdq_fused": 2}, TRAIN_WIRE_BYTES),
+        ("bingrad-b", 4, (("bingrad_b", ["--steps", "3"]),
+                          ("bingrad_b_ef", ["--steps", "2",
+                                            "--error-feedback"])),
+         {"encode_bingrad_fused": 42, "decode_fused_mean": 20,
+          "decode_fused_each": 20, "qdq_fused": 2}, wire_bytes_formula(2)),
+        ("orq-9", 3, (("orq9", ["--steps", "3"]),),
+         {"encode_fused": 18, "decode_fused_mean": 9,
+          "decode_fused_each": 9}, TRAIN_WIRE_BYTES))
+    for quant, k, runs, expect, wire in plan:
+        launches, out = _train_runs(
+            torch, quant, tuple((f"{n}_k{k}",
+                                 extra + ["--pipeline-chunks", str(k)])
+                                for n, extra in runs), expect, wire)
+        for k_, n in launches.items():
+            total[k_] = total.get(k_, 0) + n
+        for name, _ in runs:
+            r = out[f"{name}_k{k}"]
+            same = r["params_sha256"] == k1_sha[name]
+            emit("train_pipelined", run=f"{name}_k{k}", pipeline_chunks=k,
+                 params_sha256=r["params_sha256"], k1_sha256=k1_sha[name],
+                 equal_k1=same,
+                 collective_launches_per_step=r[
+                     "collective_launches_per_step"])
+            if not same or r["collective_launches_per_step"] != 4 * k:
+                failed.append(f"{name}_k{k}")
+    if failed:
+        raise AssertionError(f"pipelined runs differ from K = 1: {failed}")
+    return total
+
+
+#: lm-100m's per-leaf exchange at L = 1: 12 leaves, 4 collectives each
+PER_LEAF_WIRE = {"orq-9": 140_043_800, "bingrad-b": 34_878_832}
+
+
+def run_per_leaf_train(torch):
+    """The per-leaf exchange through the launcher: one step, then one with
+    error feedback, for orq-9 and BinGrad-b. 48 collective launches a
+    step, the reference's per-leaf wire bytes, and per step 24 encodes,
+    12 decodes of each kind (and 12 qdq with error feedback)."""
+    total = {}
+    for quant, enc, enc_n in (("orq-9", "encode_fused", 48),
+                              ("bingrad-b", "encode_bingrad_fused", 60)):
+        name = quant.replace("-", "")
+        launches, out = _train_runs(
+            torch, quant,
+            ((f"{name}_leaf", ["--steps", "1", "--per-leaf-exchange"]),
+             (f"{name}_leaf_ef", ["--steps", "1", "--per-leaf-exchange",
+                                  "--error-feedback"])),
+            {enc: enc_n, "decode_fused_mean": 24, "decode_fused_each": 24,
+             "qdq_fused": 12}, PER_LEAF_WIRE[quant])
+        for r in out.values():
+            if r["collective_launches_per_step"] != 48:
+                raise AssertionError(f"{quant} per-leaf launches "
+                                     f"{r['collective_launches_per_step']}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _subtree(tree, ffn_wo=False):
+    """final_norm, and the first group's wq, norm1 and norm2 (stacked over
+    the 12 layers): the leaves of 768 values, of 12 rows of 768 and a
+    7,077,888-value weight; with ``ffn_wo`` also the FFN's 18,874,368-value
+    down projection (12 × 2048 × 768)."""
+    gp = tree["groups"][0]["pos0"]
+    sub = {"attn": {"wq": gp["attn"]["wq"]}, "norm1": gp["norm1"],
+           "norm2": gp["norm2"]}
+    if ffn_wo:
+        sub["ffn"] = {"wo": gp["ffn"]["wo"]}
+    return {"final_norm": tree["final_norm"], "groups": ({"pos0": sub},)}
+
+
+def check_per_leaf_card_vs_cpu(torch, dev, grads):
+    """The per-leaf exchange and its EF residuals (``LeafExchange``) of
+    five leaves of the full-width gradient, each put on the grid of
+    multiples of 1/64 of its max |g| (so every fit's sums are exact in any
+    order), on the card (NCCL) and on the CPU (a gloo group of the same
+    world): bit-equal for orq-9; for BinGrad-b the means within 2^-20 of
+    their magnitude (phase 2 re-fits means, off the grid) and the
+    residuals bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.exchange import LeafExchange
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import LM
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads), True)
+    sub = _on_grid(torch, _subtree(grads, True))
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    failed = []
+    for scheme in ("orq-9", "bingrad-b"):
+        out = {}
+        for where, group in ((dev, None), ("cpu", gloo)):
+            lex = LeafExchange(QuantPolicy.parse(scheme), group)
+            x = tree_map(lambda t: t.to(where), sub)
+            key = prng.key(13, device=where)
+            out[str(where)] = [
+                torch.cat([t.reshape(-1).cpu() for t in tree_leaves(tr)])
+                for tr in (lex.exchange(paths, x, key),
+                           lex.residuals(paths, x, key))]
+        (m_card, e_card), (m_cpu, e_cpu) = out[str(dev)], out["cpu"]
+        err = float((m_card - m_cpu).abs().max())
+        tol = (2.0 ** -20 * float(m_cpu.abs().max())
+               if scheme in MEAN_LEVELS else 0.0)
+        res = dict(scheme=scheme, leaves=tree_leaves(paths),
+                   n=m_card.numel(),
+                   mean_mismatched=_mismatch(torch, m_card, m_cpu),
+                   residual_mismatched=_mismatch(torch, e_card, e_cpu),
+                   mean_max_abs_diff=err, mean_tol=tol)
+        emit("train_per_leaf", what="per-leaf exchange + EF of full-width "
+             "leaves on the 1/64 grid, card (NCCL) vs CPU (gloo)", **res)
+        if res["residual_mismatched"] or err > tol:
+            failed.append(scheme)
+    dist.destroy_process_group(gloo)
+    if failed:
+        raise AssertionError(f"card and CPU per-leaf exchanges differ for "
+                             f"{failed}")
+
+
+def _on_grid(torch, tree):
+    """Each leaf put on the multiples of 1/64 of its max |g|."""
+    from repro_torch.utils.pytree import tree_map
+    return tree_map(lambda g: torch.round(g / g.abs().max() * 64) / 64, tree)
+
+
+class _FixedGradient:
+    """A model over the leaves of ``G`` whose loss is ``sum(p * G)``: its
+    gradient is ``G`` exactly, on any device, so that the single-device
+    step's exchange and residuals can be held card against CPU."""
+
+    def __init__(self, G, paths):
+        self.G, self.paths = G, paths
+
+    def abstract_params(self):
+        return self.G
+
+    def param_paths(self, params):
+        return self.paths
+
+    def init(self, generator, device=None):
+        import torch
+        from repro_torch.utils.pytree import tree_map
+        return tree_map(torch.zeros_like, self.G)
+
+    def loss(self, params, batch):
+        import torch
+        from repro_torch.utils.pytree import tree_leaves
+        loss = sum((p * g).sum() for p, g in zip(
+            tree_leaves(params), tree_leaves(self.G), strict=True))
+        return loss, {"nll": loss, "aux": 0.0,
+                      "tokens": torch.ones((), device=loss.device)}
+
+
+#: the single-device step's second step, card vs CPU, per leaf: the
+#: relative norm of the residuals' and of the updates' differences (see
+#: check_local_card_vs_cpu; readings on an H100 80GB HBM3 at 700 W:
+#: 0 for orq-9, <= 9.3e-8 and <= 1.5e-7 for BinGrad-b, whose levels are
+#: means)
+LOCAL_RESIDUAL_RTOL = 1e-6
+LOCAL_UPDATE_RTOL = 1e-6
+
+
+def check_local_card_vs_cpu(torch, dev, grads):
+    """The single-device step (``data_parallel=False``) with error feedback
+    on ``_FixedGradient`` over ``_subtree``'s leaves of the full-width
+    gradient on the 1/64 grid, on the card and on the CPU: orq-9 and
+    BinGrad-b, fused and per leaf, two steps from zero residuals. The
+    first step quantizes grid values, whose fits are exact in any order:
+    params and residuals bit-equal. The second adds that residual, off the
+    grid, so the fits sum in another order: per leaf, the residual within
+    LOCAL_RESIDUAL_RTOL and the update within LOCAL_UPDATE_RTOL in
+    relative norm."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads))
+    G = _on_grid(torch, _subtree(grads))
+    failed = []
+    for quant in ("orq-9", "bingrad-b"):
+        for fused in (True, False):
+            tcfg = TrainConfig(policy=QuantPolicy.parse(quant),
+                               error_feedback=True, fused_exchange=fused)
+            runs = {}
+            for where in (dev, "cpu"):
+                model = _FixedGradient(
+                    tree_map(lambda g: g.to(where), G), paths)
+                fn = make_train_step(model, tcfg, constant_lr(0.05),
+                                     data_parallel=False)
+                state = init_state(model, tcfg, device=where)
+                states = [state]
+                for _ in range(2):
+                    state, _ = fn(state, {}, prng.key(0, device=where))
+                    states.append(state)
+                runs[str(where)] = [
+                    ([p.cpu() for p in tree_leaves(s.params)],
+                     [e.cpu() for e in tree_leaves(s.ef)])
+                    for s in states]
+            card, cpu = runs[str(dev)], runs["cpu"]
+            res = dict(scheme=quant,
+                       exchange="fused" if fused else "per-leaf",
+                       leaves=tree_leaves(paths))
+            res["step1_params_mismatched"] = sum(
+                _mismatch(torch, a, b) for a, b in zip(card[1][0], cpu[1][0]))
+            res["step1_residuals_mismatched"] = sum(
+                _mismatch(torch, a, b) for a, b in zip(card[1][1], cpu[1][1]))
+            res["step1_residual_max_abs"] = max(
+                float(e.abs().max()) for e in card[1][1])
+            res["step2_residuals_mismatched"] = sum(
+                _mismatch(torch, a, b) for a, b in zip(card[2][1], cpu[2][1]))
+            res["step2_residual_rel"] = [
+                float((a - b).norm() / max(float(b.norm()), 1e-30))
+                for a, b in zip(card[2][1], cpu[2][1])]
+            res["step2_update_rel"] = [
+                float((a - b).norm() / max(float((b - p0).norm()), 1e-30))
+                for a, b, p0 in zip(card[2][0], cpu[2][0], cpu[1][0])]
+            emit("train_local", what="single-device step on a fixed "
+                 "gradient (1/64 grid), card vs CPU", **res)
+            ok = (res["step1_params_mismatched"] == 0
+                  and res["step1_residuals_mismatched"] == 0
+                  and res["step1_residual_max_abs"] > 0)
+            ok = (ok and max(res["step2_update_rel"]) <= LOCAL_UPDATE_RTOL
+                  and max(res["step2_residual_rel"]) <= LOCAL_RESIDUAL_RTOL)
+            if not ok:
+                failed.append(f"{quant} {res['exchange']}")
+    if failed:
+        raise AssertionError(f"single-device step card vs CPU: {failed}")
+
+
+def _all_zero(torch, what, fn):
+    """``fn()`` with every counter zeroed just before; the path is plain
+    PyTorch, as in the reference, so every counter must still read 0."""
+    _zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched kernels: {launches}")
+    return out
+
+
+def run_local_train(torch, dev):
+    """The single-device step (``make_train_step(..., data_parallel=
+    False)``, no collective) on full-width lm-100m for orq-9 and
+    BinGrad-b with error feedback: two steps each, finite losses, each
+    step's time (the first includes the warm-up). The local qdq is plain
+    PyTorch (``Quantizer.qdq``), as in the reference: no kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = get_config("lm-100m")
+    model = LM(cfg)
+    data = SyntheticLM(cfg.vocab_size, 128, 8, seed=0)
+    for quant in ("orq-9", "bingrad-b"):
+        tcfg = TrainConfig(policy=QuantPolicy.parse(quant),
+                           error_feedback=True)
+        state = init_state(model, tcfg, seed=0, device=dev)
+        fn = make_train_step(model, tcfg, constant_lr(0.05),
+                             data_parallel=False)
+        key = prng.key(0, device=dev)
+        losses, step_ms = [], []
+
+        def steps():
+            nonlocal state
+            for i in range(2):
+                batch = data.batch(i, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fn(state, batch, key)
+                losses.append(float(m["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        _all_zero(torch, f"train_local {quant}", steps)
+        emit("train_local", scheme=quant, losses=losses, step_ms=step_ms,
+             launches_and_bytes=list(fn.launches_and_bytes(1)))
+        if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+            raise AssertionError(f"train_local {quant}: loss {losses}")
+        del state
+
+
+#: scheme_mse card vs CPU: the same bucket fits in another summation order
+#: (readings on an H100 80GB HBM3 at 700 W: rel_diff <= 1.7e-7)
+THEORY_RTOL = 1e-6
+#: buckets the CPU recomputes (all 66,058 take ~170 s there)
+THEORY_CPU_BUCKETS = 1024
+
+
+def check_theory(torch, grads):
+    """``theory.scheme_mse`` of the full-width gradient for every scheme of
+    the registry on the card (fp has no fit and raises, as in the
+    reference), timed; the same on its first THEORY_CPU_BUCKETS buckets on
+    the card and on the CPU, within THEORY_RTOL."""
+    from repro_torch.core import theory
+    from repro_torch.core.api import all_methods, make_quantizer
+    from repro_torch.core.comm.exchange import GradLayout
+
+    flat = GradLayout.from_tree(grads).flatten(grads)
+    head = flat[:THEORY_CPU_BUCKETS * TRAIN_D]
+    failed = []
+
+    def run():
+        for name in all_methods():
+            qz = make_quantizer(name)
+            if qz.is_identity:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = float(theory.scheme_mse(qz, flat))
+            ms = (time.perf_counter() - t0) * 1e3
+            card = float(theory.scheme_mse(qz, head))
+            cpu = float(theory.scheme_mse(qz, head.cpu()))
+            rel = abs(card - cpu) / max(abs(cpu), 1e-30)
+            emit("theory", scheme=name, mse_full_width=full, ms=ms,
+                 head_buckets=THEORY_CPU_BUCKETS, mse_head_card=card,
+                 mse_head_cpu=cpu, rel_diff=rel, rtol=THEORY_RTOL)
+            if not (rel <= THEORY_RTOL and full > 0 and full == full):
+                failed.append(name)
+
+    _all_zero(torch, "theory", run)
+    if failed:
+        raise AssertionError(f"scheme_mse card vs CPU: {failed}")
+
+
+def _first_difference(torch, args, dense, paged):
+    """The first (row, step) where the dense and the paged greedy tokens
+    differ, and the dense logits' gap there between the two picks (the
+    dense decode fed the paged engine's tokens up to that step)."""
+    from repro_torch.launch import serve as launcher
+
+    diff = dense != paged
+    t = int(diff.any(axis=0).argmax())
+    b = int(diff[:, t].argmax())
+    a = launcher.parse_args(args)
+    device, model, params, prompt = launcher.setup(a)
+    cache = model.init_cache(a.batch, a.max_len, device=device)
+    p = torch.as_tensor(prompt, dtype=torch.int64, device=device)
+    for off in range(0, a.prompt_len, a.prefill_chunk):
+        lg, cache = model.prefill_chunk(params, cache,
+                                        p[:, off:off + a.prefill_chunk], off)
+    for i in range(t):
+        tok = torch.as_tensor(paged[:, i:i + 1], dtype=torch.int64,
+                              device=device)
+        lg, cache = model.decode_step(params, cache, tok, a.prompt_len + i)
+    row = lg[b, -1].float()
+    return dict(row=b, step=t, dense_token=int(dense[b, t]),
+                paged_token=int(paged[b, t]),
+                logit_gap=float(row[int(dense[b, t])]
+                                - row[int(paged[b, t])]))
+
+
+def profile_dense_decode(torch, args):
+    """Device time by category over four dense decode steps (batch 8,
+    the prompt prefilled in chunks), beside the same steps' wall time
+    without the profiler; busy share = device time / unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as launcher
+
+    a = launcher.parse_args(args)
+    device, model, params, prompt = launcher.setup(a)
+    cache = model.init_cache(a.batch, a.max_len, device=device)
+    p = torch.as_tensor(prompt, dtype=torch.int64, device=device)
+    for off in range(0, a.prompt_len, a.prefill_chunk):
+        lg, cache = model.prefill_chunk(params, cache,
+                                        p[:, off:off + a.prefill_chunk], off)
+    pos = [a.prompt_len]
+
+    def steps():
+        nonlocal lg, cache
+        for _ in range(4):
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            lg, cache = model.decode_step(params, cache, tok, pos[0])
+            pos[0] += 1
+        torch.cuda.synchronize()
+
+    steps()                                          # warm-up
+    t0 = time.perf_counter()
+    steps()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        steps()
+        time.sleep(PROFILE_PAD_S)
+    rows = _kernel_events(prof)
+    total = sum(r[0] for r in rows)
+    emit("profile", scheme="dense bf16 ring buffer",
+         window="4 decode steps, batch 8",
+         wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
+         kernel_launches=sum(r[2] for r in rows),
+         device_busy_share=total / 1e3 / (plain_wall * 1e3),
+         by_category=_by_category(rows),
+         top=[{"name": k[:90], "count": c, "device_us": us}
+              for us, k, c in rows[:12]])
+
+
+def run_dense_serve(torch):
+    """The dense ring-buffer serve path through the launcher (no
+    ``--kv-quant``) on full-width lm-100m, batch 8, prompt 128, 32 new
+    tokens, context 512, prefill chunk 64; then the bf16 paged engine on
+    the same prompts. The greedy tokens must be equal (the reference's
+    ``tests/test_serve_engine.py`` holds the same); both paths are plain
+    PyTorch (``masked_decode_attention``), so every counter reads 0."""
+    import numpy as np
+
+    from repro_torch.launch import serve as launcher
+
+    dense_args = [a for a in MAIN_ARGS if a not in ("--kv-quant", "orq-9")]
+    paged_args = dense_args + ["--kv-quant", "bf16"]
+    runs = {}
+    for name, args in (("dense", dense_args), ("paged_bf16", paged_args)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = _all_zero(torch, f"serve {name}",
+                      lambda: launcher.serve(args))
+        wall = time.perf_counter() - t0
+        r.pop("engine")
+        runs[name] = r
+        emit("serve_dense", run=name, args=" ".join(args), wall_s=wall,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(),
+             **{k: v for k, v in r.items() if k != "tokens"})
+    dense, paged = runs["dense"]["tokens"], runs["paged_bf16"]["tokens"]
+    equal = bool(np.array_equal(dense, paged))
+    first = None if equal else _first_difference(torch, dense_args, dense,
+                                                  paged)
+    emit("serve_dense", what="dense vs bf16 paged greedy tokens",
+         equal=equal, first_difference=first,
+         differing=int((dense != paged).sum()), tokens=int(dense.size))
+    if dense.shape != (8, 32) or not equal:
+        raise AssertionError(f"dense and bf16 paged tokens differ: {first}")
+    _all_zero(torch, "dense decode profile",
+              lambda: profile_dense_decode(torch, dense_args))
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -1566,6 +2159,7 @@ def main() -> int:
     qdq = check_qdq(torch, dev)
     bgr = check_bingrad(torch, dev)
     mpk = check_multipass_kernels(torch, dev)
+    check_schedule_shapes(torch, dev)
     serve_launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
     profile_decode(torch, eng)
@@ -1576,24 +2170,36 @@ def main() -> int:
     del eng
     dist = start_world(torch)
     try:
-        train_launches, state = run_train_path(torch)
+        train_launches, state, k1_sha = run_train_path(torch)
         profile_train(torch, state)
         del state
-        bin_train_launches, state = run_bingrad_train(torch)
+        bin_train_launches, state, bin_sha = run_bingrad_train(torch)
         profile_train(torch, state, "bingrad-b")
         del state
         other_launches = run_other_schemes(torch)
         check_exchange_card_vs_cpu(torch, dev)
-        mp_launches = run_multipass_path(torch, dev)
+        pipe_launches = run_pipelined_train(torch, {**k1_sha, **bin_sha})
+        leaf_launches = run_per_leaf_train(torch)
+        grads_loss = full_width_grads(torch, dev)
+        check_per_leaf_card_vs_cpu(torch, dev, grads_loss[0])
+        mp_launches = run_multipass_path(torch, dev, grads_loss)
+        check_theory(torch, grads_loss[0])
+        _all_zero(torch, "train_local card vs CPU",
+                  lambda: check_local_card_vs_cpu(torch, dev, grads_loss[0]))
+        del grads_loss
     finally:
         dist.destroy_process_group()
+    run_local_train(torch, dev)
+    run_dense_serve(torch)
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
              "train_orq9": train_launches,
              "train_bingrad_b": bin_train_launches,
              "train_other_schemes": other_launches,
-             "multipass_exchange": mp_launches}
+             "multipass_exchange": mp_launches,
+             "train_pipelined": pipe_launches,
+             "train_per_leaf": leaf_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -6,5 +6,6 @@
     clipping    TernGrad σ-clip
     levels      ORQ's Algorithm 1
     quantizers  the Quantizer recipe; api: the scheme registry
+    theory      the paper's exact error terms (expected / deterministic MSE)
     comm.wire   the (words, levels) wire unit
 """

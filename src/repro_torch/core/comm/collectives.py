@@ -23,8 +23,12 @@ The worker index is the process group rank, which plays the reference's
 worker)`` in phase 2. With one process the same two phases run with
 L = 1, as the reference runs them on a one-device mesh.
 
-Only the single-shot schedule is ported: ``pipeline_chunks`` other than
-1 raises (ROADMAP.md).
+``pipeline_chunks = K > 1`` is the reference's pipelined schedule: both
+phases split their bucket rows into K contiguous spans, each span encoded
+and sent by its own collectives (issued with ``async_op=True``, waited on
+only before that span's decode, so span k's transfer can overlap span
+k+1's encode). The rounding stream is drawn once at the full layout and
+sliced per span, so the result is bit-identical to K = 1.
 """
 from __future__ import annotations
 
@@ -49,30 +53,36 @@ def world(group=None) -> Tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
-def _check_schedule(pipeline_chunks: int) -> None:
-    if pipeline_chunks != 1:
-        raise NotImplementedError(
-            f"pipeline_chunks={pipeline_chunks}: the pipelined exchange is "
-            f"not ported to repro_torch yet (see ROADMAP.md)")
-
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def _start_all_to_all(x: torch.Tensor, group):
     """(L, ...) -> (L, ...): slice l goes to worker l; slice j of the
-    result came from worker j (``lax.all_to_all`` split/concat axis 0)."""
+    result came from worker j (``lax.all_to_all`` split/concat axis 0).
+    Returns (out, work): read ``out`` after ``work.wait()``."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
+    return out, dist.all_to_all_single(out, x, group=group, async_op=True)
 
 
-def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """(...) -> (L, ...), stacked by rank (``lax.all_gather``, untiled)."""
+def _start_all_gather(x: torch.Tensor, group):
+    """(...) -> (L, ...), stacked by rank (``lax.all_gather``, untiled).
+    Returns (out, work): read ``out`` after ``work.wait()``."""
     L = dist.get_world_size(group)
     out = torch.empty((L * x.numel(),), dtype=x.dtype, device=x.device)
     # every torch 2.x has this call (newer releases also name it
     # all_gather_single and warn that this name is deprecated)
-    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)
-    return out.reshape((L,) + tuple(x.shape))
+    work = dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                       group=group, async_op=True)
+    return out.reshape((L,) + tuple(x.shape)), work
+
+
+def _done(pending):
+    """Wait on (out, work) pairs; -> the outs."""
+    for _, work in pending:
+        work.wait()
+    return [out for out, _ in pending]
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    return _done([_start_all_gather(x, group)])[0]
 
 
 def _chunk_spans(n_rows: int, k) -> list:
@@ -90,23 +100,42 @@ def _chunk_spans(n_rows: int, k) -> list:
 
 
 def _rs_mean_parts(parts: torch.Tensor, valid: torch.Tensor, qz: Quantizer,
-                   key: torch.Tensor, group) -> torch.Tensor:
+                   key: torch.Tensor, group,
+                   pipeline_chunks: int = 1) -> torch.Tensor:
     """parts (L, chunk) local contributions, one row per destination
     worker; valid (L, chunk) bool. ``key`` is already folded per worker.
-    Returns this worker's (chunk,) mean slice (the single-shot schedule:
-    one encode, one pair of all_to_alls, one decode)."""
+    Returns this worker's (chunk,) mean slice: per span of bucket rows one
+    encode, one pair of all_to_alls and one decode (one span unless
+    ``pipeline_chunks > 1``)."""
     L, chunk = parts.shape
     d_eff = bucket_len(chunk, qz.bucket_size)
     pad = -(-chunk // d_eff) * d_eff - chunk
     parts = F.pad(parts.to(torch.float32), (0, pad))
     valid = F.pad(valid, (0, pad))
     nbc = parts.shape[1] // d_eff
-    words, levels = wire.encode(qz, parts.reshape(L * nbc, d_eff),
-                                valid.reshape(L * nbc, d_eff), key)
-    # the wire: int32 payload + f32 level tables
-    words = _all_to_all(words.reshape(L, nbc, -1), group)
-    levels = _all_to_all(levels.reshape(L, nbc, -1), group)
-    mean_bkt = wire.decode_mean(qz, words, levels, d_eff)
+    bkt = parts.reshape(L, nbc, d_eff)
+    mask = valid.reshape(L, nbc, d_eff)
+    spans = _chunk_spans(nbc, pipeline_chunks)
+    rbits = None
+    if len(spans) > 1:
+        # drawn once at the full (L·nbc, d_eff) layout and sliced: threefry
+        # counts over the flattened shape, so a span's own draw would differ
+        rbits = wire.encode_rbits(qz, key, (L * nbc, d_eff), parts.device)
+        rbits = None if rbits is None else rbits.reshape(L, nbc, d_eff)
+    pending = []
+    for a, b in spans:
+        rows = L * (b - a)
+        words, levels = wire.encode(
+            qz, bkt[:, a:b].reshape(rows, d_eff),
+            mask[:, a:b].reshape(rows, d_eff), key,
+            rbits=None if rbits is None else rbits[:, a:b].reshape(rows,
+                                                                    d_eff))
+        # the wire: int32 payload + f32 level tables
+        pending.append((_start_all_to_all(words.reshape(L, b - a, -1), group),
+                        _start_all_to_all(levels.reshape(L, b - a, -1),
+                                          group)))
+    means = [wire.decode_mean(qz, *_done(pair), d_eff) for pair in pending]
+    mean_bkt = means[0] if len(means) == 1 else torch.cat(means)
     return mean_bkt.reshape(-1)[:chunk]
 
 
@@ -125,8 +154,9 @@ def quantized_reduce_scatter_mean(flat: torch.Tensor, qz: Quantizer,
                                   pipeline_chunks: int = 1) -> torch.Tensor:
     """Each worker holds a full local gradient ``flat`` (n,). Returns this
     worker's (chunk,) slice of the across-worker mean, chunk = ceil(n/L).
-    The fp scheme sums over the group and divides by L."""
-    _check_schedule(pipeline_chunks)
+    The fp scheme sums over the group and divides by L.
+    ``pipeline_chunks`` splits the exchange into that many bucket-row
+    spans, bit-identical to the single-shot schedule."""
     n = flat.shape[0]
     L, rank = world(group)
     chunk = -(-n // L)
@@ -138,7 +168,8 @@ def quantized_reduce_scatter_mean(flat: torch.Tensor, qz: Quantizer,
         return total[me * chunk:(me + 1) * chunk] / L
     valid = _valid_parts(valid, n, L, chunk, flat.device)
     return _rs_mean_parts(padded.reshape(L, chunk), valid, qz,
-                          prng.fold_in(key, me), group)
+                          prng.fold_in(key, me), group,
+                          pipeline_chunks=pipeline_chunks)
 
 
 def local_qdq_comm_layout(flat: torch.Tensor, qz: Quantizer,
@@ -172,8 +203,9 @@ def quantized_all_reduce_mean(flat: torch.Tensor, qz: Quantizer,
                               pipeline_chunks: int = 1) -> torch.Tensor:
     """Full Algorithm 2 exchange. Returns the (n,) mean gradient,
     identical on every worker (the phase-2 decode is deterministic).
-    ``valid`` optionally marks the real positions of ``flat``."""
-    _check_schedule(pipeline_chunks)
+    ``valid`` optionally marks the real positions of ``flat``.
+    ``pipeline_chunks`` pipelines both phases over the same bucket-row
+    spans, bit-identical to the single-shot schedule."""
     n = flat.shape[0]
     L, rank = world(group)
     if qz.is_identity:
@@ -183,7 +215,8 @@ def quantized_all_reduce_mean(flat: torch.Tensor, qz: Quantizer,
 
     chunk = -(-n // L)
     mean_chunk = quantized_reduce_scatter_mean(
-        flat, qz, key, group=group, worker_id=worker_id, valid=valid)
+        flat, qz, key, group=group, worker_id=worker_id, valid=valid,
+        pipeline_chunks=pipeline_chunks)
     if not server_requant:
         full = _all_gather(mean_chunk, group)
         return full.reshape(-1)[:n].to(flat.dtype)
@@ -201,8 +234,18 @@ def quantized_all_reduce_mean(flat: torch.Tensor, qz: Quantizer,
                                                   (me + 1) * chunk]
         mask = F.pad(vchunk, (0, pad))
     key2 = prng.fold_in(prng.fold_in(key, 0x5EC0), me)
-    words, levels = wire.encode(qz, bkt, mask.reshape(-1, d_eff), key2)
-    vals = wire.decode_each(qz, _all_gather(words, group),
-                            _all_gather(levels, group), d_eff)
+    mask = mask.reshape(-1, d_eff)
+    spans = _chunk_spans(bkt.shape[0], pipeline_chunks)
+    rbits = (wire.encode_rbits(qz, key2, bkt.shape, bkt.device)
+             if len(spans) > 1 else None)
+    pending = []
+    for a, b in spans:
+        words, levels = wire.encode(
+            qz, bkt[a:b], mask[a:b], key2,
+            rbits=None if rbits is None else rbits[a:b])
+        pending.append((_start_all_gather(words, group),
+                        _start_all_gather(levels, group)))
+    vals = [wire.decode_each(qz, *_done(pair), d_eff) for pair in pending]
+    vals = vals[0] if len(vals) == 1 else torch.cat(vals, dim=1)
     vals = vals.reshape(L, -1)[:, :chunk]            # (L, chunk)
     return vals.reshape(-1)[:n].to(flat.dtype)

@@ -14,6 +14,12 @@
     PartitionedExchange their resolved QuantConfig into contiguous
                         segments, one fused exchange per group. A uniform
                         policy is exactly one group with an unfolded key.
+    LeafExchange        the per-leaf exchange: one quantized all-reduce
+                        per parameter leaf under its policy-resolved
+                        quantizer, keyed by the crc32 of its path;
+    policy_stats /      static accounting without a tree: launches and
+    per_leaf_stats /    wire bytes per worker of a policy, of the per-leaf
+    fused_stats         exchange and of the fused one (benchmarks).
 
 The compute side goes through ``core/comm/wire.py`` and its kernels.
 The two-level (``intra_axes``) mode is not ported yet (ROADMAP.md).
@@ -23,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -30,13 +37,12 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.api import QuantConfig
 from repro_torch.core.comm import wire
-from repro_torch.core.comm.collectives import (_check_schedule,
-                                               local_qdq_comm_layout,
+from repro_torch.core.comm.collectives import (local_qdq_comm_layout,
                                                quantized_all_reduce_mean)
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quantizers import Quantizer
 from repro_torch.utils.pytree import (tree_flatten_with_path, tree_leaves,
-                                      tree_unflatten)
+                                      tree_map, tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +112,12 @@ class GradientExchange:
     the buffer is split into ceil(n / cap) contiguous spans, each
     exchanged independently with the key folded by the span index;
     :meth:`local_qdq_flat` applies the identical schedule, so
-    error-feedback residuals stay bit-consistent with what was sent."""
+    error-feedback residuals stay bit-consistent with what was sent.
+
+    ``pipeline_chunks`` is the pipelined schedule (a latency knob): each
+    span's all-reduce is issued as that many bucket-row chunks,
+    bit-identical to ``pipeline_chunks=1``, so error-feedback residuals
+    need no schedule awareness."""
 
     qz: Quantizer
     group: Any = None
@@ -119,11 +130,13 @@ class GradientExchange:
         if self.max_chunk_elems is not None and self.max_chunk_elems <= 0:
             raise ValueError(f"max_chunk_elems must be positive, got "
                              f"{self.max_chunk_elems}")
+        if self.pipeline_chunks < 1:
+            raise ValueError(f"pipeline_chunks must be >= 1, got "
+                             f"{self.pipeline_chunks}")
         if self.intra_axes:
             raise NotImplementedError(
                 "the two-level (intra_axes) exchange is not ported to "
                 "repro_torch yet (see ROADMAP.md)")
-        _check_schedule(self.pipeline_chunks)
 
     def spans(self, n: int) -> List[Tuple[int, int]]:
         cap = self.max_chunk_elems
@@ -141,7 +154,8 @@ class GradientExchange:
         outs = [quantized_all_reduce_mean(
                     flat[a:b], self.qz, self._span_key(key, i),
                     group=self.group, worker_id=worker_id,
-                    server_requant=self.server_requant)
+                    server_requant=self.server_requant,
+                    pipeline_chunks=self.pipeline_chunks)
                 for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -155,14 +169,59 @@ class GradientExchange:
                 for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+    def qdq_local_flat(self, flat: torch.Tensor,
+                       key: torch.Tensor) -> torch.Tensor:
+        """The single-device Algorithm 2: quantize -> dequantize the whole
+        buffer locally (one bucketed pass per span, no collective)."""
+        if self.qz.is_identity:
+            return flat
+        outs = [self.qz.qdq(flat[a:b], self._span_key(key, i))
+                for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
     # -- static cost accounting --------------------------------------------
-    def collective_launches(self, n: int) -> int:
-        """Collective launches for one exchange of n elements: per span,
-        2 all_to_all (words, levels) + 2 all_gather when re-quantizing,
-        1 f32 all_gather otherwise; fp = 1 all-reduce per span."""
-        per_span = 1 if self.qz.is_identity else (
-            4 if self.server_requant else 3)
-        return per_span * len(self.spans(n))
+    def _pipeline_k(self, m: int, n_workers: Optional[int]) -> int:
+        """Effective pipeline chunk count for an m-element span: the
+        schedule clamps K to the span's bucket rows (an unknown worker
+        count assumes no clamp)."""
+        if self.pipeline_chunks <= 1:
+            return 1
+        if n_workers is None:
+            return self.pipeline_chunks
+        chunk = -(-m // max(n_workers, 1))
+        d_eff = wire.bucket_len(chunk, self.qz.bucket_size)
+        nbc = -(-chunk // d_eff)
+        return max(1, min(self.pipeline_chunks, nbc))
+
+    def collective_launches(self, n: int,
+                            n_workers: Optional[int] = None) -> int:
+        """Collective launches for one exchange of n elements, per
+        pipeline chunk: 2 all_to_all (words, levels) in phase 1, then 2
+        all_gather when re-quantizing, else 1 f32 all_gather (unchunked);
+        fp = 1 all-reduce per span. ``n_workers`` gives the exact clamp
+        of K to each span's bucket rows."""
+        if self.qz.is_identity:
+            return len(self.spans(n))
+        total = 0
+        for a, b in self.spans(n):
+            k = self._pipeline_k(b - a, n_workers)
+            total += 4 * k if self.server_requant else 2 * k + 1
+        return total
+
+    @staticmethod
+    def rs_stats(qz: Quantizer, n: int, n_workers: int,
+                 pipeline_chunks: int = 1) -> Tuple[int, float]:
+        """(launches, wire bytes per worker) of ONE fused quantized
+        reduce-scatter of n elements: the phase-1 uplink only. K
+        multiplies the launches (2 all_to_all a chunk); the bytes do not
+        depend on the schedule."""
+        if qz.is_identity:
+            return 1, 4.0 * n                    # one reduce-scatter
+        chunk = -(-n // max(n_workers, 1))
+        d_eff = wire.bucket_len(chunk, qz.bucket_size)
+        nbc = -(-chunk // d_eff)
+        k = max(1, min(int(pipeline_chunks), nbc))
+        return 2 * k, float(wire.wire_unit_bytes(qz, nbc * n_workers, d_eff))
 
     def wire_bytes_per_worker(self, n: int, n_workers: int) -> float:
         """Bytes one worker transmits per exchange (uplink phase 1 +
@@ -309,6 +368,14 @@ class PartitionedExchange:
                                     worker_id=worker_id)
             for gi, (eng, buf) in enumerate(zip(self.engines, bufs)))
 
+    def qdq_local_parts(self, bufs: Sequence[torch.Tensor],
+                        key) -> Tuple[torch.Tensor, ...]:
+        """Per-group single-device quantize -> dequantize (no collective);
+        identity groups pass through."""
+        return tuple(eng.qdq_local_flat(buf, self._group_key(key, gi))
+                     for gi, (eng, buf) in enumerate(zip(self.engines,
+                                                         bufs)))
+
     def collective_launches(self) -> int:
         return sum(eng.collective_launches(g.size)
                    for eng, g in zip(self.engines, self.layout.groups))
@@ -316,3 +383,154 @@ class PartitionedExchange:
     def wire_bytes_per_worker(self, n_workers: int) -> float:
         return sum(eng.wire_bytes_per_worker(g.size, n_workers)
                    for eng, g in zip(self.engines, self.layout.groups))
+
+    def launches_and_bytes(self, n_workers: int) -> Tuple[int, float]:
+        """(collective launches, wire bytes per worker) of one exchange."""
+        return (self.collective_launches(),
+                self.wire_bytes_per_worker(n_workers))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafExchange:
+    """The per-leaf exchange (the reference's ``fused_exchange=False``
+    branch of its replicated step): every leaf of a gradient tree goes
+    through its own quantized all-reduce under its policy-resolved
+    quantizer (built once per config), keyed by ``fold_in(step_key,
+    crc32(path) & 0x7FFFFFFF)``; an fp leaf is an all-reduce / L. The
+    ``paths`` trees are aligned with the gradient trees
+    (``LM.param_paths``); ``path_sizes`` (``[(path, size), ...]``, as
+    :meth:`build` lays them out) serve the accounting."""
+
+    policy: QuantPolicy
+    group: Any = None
+    path_sizes: Tuple[Tuple[str, int], ...] = ()
+    _cache: Dict[QuantConfig, Quantizer] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    @classmethod
+    def build(cls, policy: QuantPolicy, tree, group=None, *,
+              paths) -> "LeafExchange":
+        return cls(policy, group, tuple(
+            (p, int(t.numel()))
+            for p, t in zip(tree_leaves(paths), tree_leaves(tree),
+                            strict=True)))
+
+    @property
+    def is_identity(self) -> bool:
+        return all(self.resolve(p)[1].is_identity
+                   for p, _ in self.path_sizes)
+
+    def resolve(self, path: str) -> Tuple[QuantConfig, Quantizer]:
+        cfg = self.policy.resolve(path)
+        if cfg not in self._cache:
+            self._cache[cfg] = cfg.to_quantizer()
+        return cfg, self._cache[cfg]
+
+    @staticmethod
+    def leaf_key(step_key: torch.Tensor, path: str) -> torch.Tensor:
+        return prng.fold_in(step_key, zlib.crc32(path.encode()) & 0x7FFFFFFF)
+
+    def exchange(self, paths, grads, step_key: torch.Tensor):
+        """Each leaf's across-worker mean, in the leaf's shape and dtype."""
+        def one(path, g):
+            cfg, qz = self.resolve(path)
+            out = quantized_all_reduce_mean(
+                g.to(torch.float32).reshape(-1), qz,
+                self.leaf_key(step_key, path), group=self.group,
+                server_requant=cfg.server_requant)
+            return out.reshape(g.shape).to(g.dtype)
+        return tree_map(one, paths, grads)
+
+    def residuals(self, paths, grads, step_key: torch.Tensor):
+        """Error feedback: each leaf's f32 ``g - Q^-1(Q(g))`` on the
+        layout of its phase-1 contribution (zero for an fp leaf)."""
+        def one(path, g):
+            _, qz = self.resolve(path)
+            if qz.is_identity:
+                return torch.zeros(g.shape, dtype=torch.float32,
+                                   device=g.device)
+            flat = g.to(torch.float32).reshape(-1)
+            local = local_qdq_comm_layout(flat, qz,
+                                          self.leaf_key(step_key, path),
+                                          group=self.group)
+            return (flat - local).reshape(g.shape)
+        return tree_map(one, paths, grads)
+
+    def qdq_local(self, paths, grads, step_key: torch.Tensor):
+        """The single-device per-leaf step: each leaf quantized and
+        dequantized locally (no collective), in its shape and dtype."""
+        def one(path, g):
+            _, qz = self.resolve(path)
+            if qz.is_identity:
+                return g
+            return qz.qdq(g.to(torch.float32).reshape(-1),
+                          self.leaf_key(step_key, path)).reshape(
+                              g.shape).to(g.dtype)
+        return tree_map(one, paths, grads)
+
+    def launches_and_bytes(self, n_workers: int) -> Tuple[int, float]:
+        """(collective launches, wire bytes per worker) of one exchange:
+        :func:`per_leaf_stats` of each leaf under its own quantizer."""
+        launches, wire_bytes = 0, 0.0
+        for path, size in self.path_sizes:
+            cfg, qz = self.resolve(path)
+            count, b = per_leaf_stats(qz, [size], n_workers,
+                                      server_requant=cfg.server_requant)
+            launches += count
+            wire_bytes += b
+        return launches, wire_bytes
+
+
+def policy_stats(policy: QuantPolicy, path_sizes, n_workers: int, *,
+                 max_chunk_elems: Optional[int] = None,
+                 sharded_paths=None
+                 ) -> Tuple[int, float, Tuple[str, ...]]:
+    """(launches, wire bytes per worker, group labels) of a policy over
+    ``[(path, size), ...]`` leaves, without a tree (benchmarks).
+
+    ``sharded_paths`` (paths exchanged by the fused quantized
+    reduce-scatter, the phase-1 uplink only, as fsdp shards them) are
+    accounted as their own ``<scheme>/rs`` segments, each rounded up to a
+    multiple of ``n_workers``; the other leaves pay the full Algorithm 2
+    all-reduce."""
+    sharded_paths = frozenset(sharded_paths or ())
+    groups: Dict[Tuple[QuantConfig, bool], int] = {}
+    for path, size in path_sizes:
+        key = (policy.resolve(path), path in sharded_paths)
+        groups[key] = groups.get(key, 0) + int(size)
+    launches, bytes_, labels = 0, 0.0, []
+    for (cfg, sharded), n in groups.items():
+        qz = cfg.to_quantizer()
+        if sharded:
+            n = -(-n // n_workers) * n_workers
+            count, b = GradientExchange.rs_stats(qz, n, n_workers)
+            launches += count
+            bytes_ += b
+            labels.append(f"{cfg.name}/rs")
+            continue
+        eng = GradientExchange(qz, server_requant=cfg.server_requant,
+                               max_chunk_elems=max_chunk_elems)
+        launches += eng.collective_launches(n)
+        bytes_ += eng.wire_bytes_per_worker(n, n_workers)
+        labels.append(cfg.name)
+    return launches, bytes_, tuple(labels)
+
+
+def per_leaf_stats(qz: Quantizer, sizes: Sequence[int], n_workers: int, *,
+                   server_requant: bool = True) -> Tuple[int, float]:
+    """(launches, wire bytes per worker) of the per-leaf exchange: every
+    leaf pays its own collectives and its own chunk/bucket padding."""
+    eng = GradientExchange(qz, server_requant=server_requant)
+    return (sum(eng.collective_launches(n) for n in sizes),
+            sum(eng.wire_bytes_per_worker(n, n_workers) for n in sizes))
+
+
+def fused_stats(qz: Quantizer, sizes: Sequence[int], n_workers: int, *,
+                server_requant: bool = True,
+                max_chunk_elems: Optional[int] = None) -> Tuple[int, float]:
+    """(launches, wire bytes per worker) of the fused exchange of the same
+    leaves through one flat buffer."""
+    eng = GradientExchange(qz, server_requant=server_requant,
+                           max_chunk_elems=max_chunk_elems)
+    n = int(sum(sizes))
+    return eng.collective_launches(n), eng.wire_bytes_per_worker(n, n_workers)

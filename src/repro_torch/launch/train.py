@@ -6,6 +6,11 @@
     python -m repro_torch.launch.train --arch lm-100m --steps 100 \\
         --quant bingrad-b --batch 8 --seq 128 [--error-feedback]
 
+    # the pipelined exchange (K bucket-row chunks a phase, bit-identical
+    # to K = 1) and the per-leaf exchange (one all-reduce per leaf):
+    python -m repro_torch.launch.train --quant orq-9 --pipeline-chunks 4
+    python -m repro_torch.launch.train --quant orq-9 --per-leaf-exchange
+
     # several workers, one card each (torchrun sets RANK / WORLD_SIZE /
     # MASTER_ADDR / MASTER_PORT; NCCL on the cards):
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --quant orq-9
@@ -16,11 +21,13 @@ Without ``torchrun`` the launcher starts a world of one through a
 random, drawn from ``torch.Generator(seed)``; the tokens are the
 reference's ``SyntheticLM`` stream, bit for bit, each worker taking its
 rows of the global batch. A sha256 digest of the final parameters is
-printed (``params sha256 ...``) and written to ``--metrics-out``.
+printed (``params sha256 ...``) and written to ``--metrics-out``, with
+the step's collective launches and wire bytes per worker from the
+engine's own accounting.
 
-fsdp mode, the two-level / async hierarchies, bit schedules, pipelined
-and per-leaf exchanges, pods, and checkpoints are not ported yet
-(ROADMAP.md); their flags exit with a message.
+fsdp mode, the two-level / async hierarchies, bit schedules, pods, and
+checkpoints are not ported yet (ROADMAP.md); their flags exit with a
+message.
 """
 from __future__ import annotations
 
@@ -83,6 +90,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="accumulate error-feedback residuals")
     ap.add_argument("--exchange-chunk", type=int, default=None,
                     help="cap fused-collective size (elements) for memory")
+    ap.add_argument("--pipeline-chunks", type=int, default=1,
+                    help="split each fused exchange into K bucket-row "
+                         "chunks (bit-identical to K = 1)")
+    ap.add_argument("--per-leaf-exchange", action="store_true",
+                    help="one quantized all-reduce per parameter leaf "
+                         "instead of the fused buffer")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
@@ -90,8 +103,6 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu (the plain versions)")
     # reference flags whose paths are not ported yet
     ap.add_argument("--bit-schedule", default=None)
-    ap.add_argument("--pipeline-chunks", type=int, default=1)
-    ap.add_argument("--per-leaf-exchange", action="store_true")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--checkpoint", default=None)
@@ -106,8 +117,6 @@ def _refuse_unported(ap, args) -> None:
         (args.hierarchy not in ("flat", "auto"),
          f"--hierarchy {args.hierarchy}"),
         (args.bit_schedule is not None, "--bit-schedule"),
-        (args.pipeline_chunks != 1, "--pipeline-chunks > 1"),
-        (args.per_leaf_exchange, "--per-leaf-exchange"),
         (args.pods != 1, "--pods"),
         (args.resume is not None, "--resume"),
         (args.checkpoint is not None or args.state_checkpoint is not None
@@ -154,7 +163,9 @@ def train(argv=None) -> dict:
         policy = QuantPolicy.parse(args.quant, bucket_size=args.bucket,
                                    clip_c=args.clip_c)
         tcfg = TrainConfig(policy=policy, error_feedback=args.error_feedback,
-                           exchange_chunk_elems=args.exchange_chunk)
+                           fused_exchange=not args.per_leaf_exchange,
+                           exchange_chunk_elems=args.exchange_chunk,
+                           pipeline_chunks=args.pipeline_chunks)
     except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
@@ -163,7 +174,7 @@ def train(argv=None) -> dict:
         step_fn = make_train_step(
             model, tcfg, step_decay(args.lr, [args.steps // 2,
                                               3 * args.steps // 4]))
-    except NotImplementedError as e:
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     device, rank, ws, created = _init_world(resolve_device(args.device))
     try:
@@ -199,17 +210,23 @@ def train(argv=None) -> dict:
         every = [torch.empty_like(mine) for _ in range(ws)]
         dist.all_gather(every, mine)
         in_sync = all(torch.equal(d, mine) for d in every)
-        pex = step_fn.exchange
+        launches, wire_bytes = step_fn.launches_and_bytes(ws)
         out = {"history": history, "params_sha256": digest,
                "step_s": step_s, "world_size": ws, "rank": rank,
-               "n_params": pex.layout.size,
-               "wire_bytes_per_worker": pex.wire_bytes_per_worker(ws),
-               "collective_launches_per_step": pex.collective_launches(),
+               "n_params": sum(p.numel()
+                             for p in tree_leaves(state.params)),
+               "exchange": ("per-leaf" if args.per_leaf_exchange
+                            else "fused"),
+               "pipeline_chunks": args.pipeline_chunks,
+               "wire_bytes_per_worker": wire_bytes,
+               "collective_launches_per_step": launches,
                "replicas_in_sync": in_sync, "device": str(device),
                "state": state}
         if rank == 0:
             print("params sha256", digest, flush=True)
             print(f"replicas in sync: {in_sync} ({ws} workers)", flush=True)
+            print(f"collective launches per step {launches}, wire bytes "
+                  f"per worker {wire_bytes:.0f}", flush=True)
             if args.metrics_out:
                 with open(args.metrics_out, "w") as f:
                     json.dump({k: v for k, v in out.items() if k != "state"},

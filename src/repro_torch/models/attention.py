@@ -1,8 +1,9 @@
 """Attention (the reference's ``models/attention.py``): the spec, its
 scale, the chunked online-softmax attention of the training forward, and
 the cache attention with a full per-query mask, used by the serving
-engine's bf16 escape hatch. Plain PyTorch: the reference computes all of
-it outside any Pallas kernel."""
+engine's bf16 escape hatch and by the dense ring-buffer decode
+(``decode_attention``). Plain PyTorch: the reference computes all of it
+outside any Pallas kernel."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -115,3 +116,12 @@ def masked_decode_attention(q, k_cache, v_cache, mask, spec: AttnSpec):
     p = torch.softmax(s, dim=-1)
     o = _chunk_out(p, v_cache, B, H, T)                 # (B,T,H,hd)
     return o.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask, spec: AttnSpec):
+    """One-token attention: q (B,1,H,hd) (rope already applied);
+    k_cache/v_cache (B,C,KV,hd) (rope applied at insert); valid_mask
+    (B,C) bool -> (B,1,H,hd): :func:`masked_decode_attention` at T == 1,
+    the same computation."""
+    return masked_decode_attention(q, k_cache, v_cache,
+                                   valid_mask[:, None, :], spec)

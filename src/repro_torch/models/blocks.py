@@ -1,6 +1,15 @@
 """Per-layer parameters and the dense GQA attention layer: the pieces the
-serving engine applies and the training forward ``apply_layer_train``
-(the reference's ``models/blocks.py``)."""
+serving engine applies, the training forward ``apply_layer_train`` and
+the dense ring-buffer decode (``init_layer_cache``,
+``apply_layer_prefill_chunk``, ``apply_layer_decode``), as in the
+reference's ``models/blocks.py``.
+
+The ring-buffer cache of one layer is ``{"k", "v": (B, C, KV, hd) bf16,
+"pos": (C,) int32}``: slot ``pos % C`` holds the token at absolute
+position ``pos``, and ``pos`` is -1 where no token was written yet. A
+sliding-window layer (``attn_local``) keeps C = min(max_len, window)
+slots. The decode functions write the new rows into the cache in place
+(the reference donates the cache through its jit) and return it."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,8 +17,11 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import AttnSpec, chunked_attention
-from repro_torch.models.layers import dense_init, gated_mlp, rms_norm
+from repro_torch.models.attention import (AttnSpec, chunked_attention,
+                                         decode_attention,
+                                         masked_decode_attention)
+from repro_torch.models.layers import (apply_rope, dense_init, gated_mlp,
+                                       rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,3 +127,81 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
     h = x + _attn_block_train(cfg, spec, p, _apply_norm(cfg, p["norm1"], x))
     y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y, aux
+
+
+# ---------------------------------------------------------------------------
+# dense ring-buffer decode
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, dtype=torch.bfloat16,
+                     device=None) -> dict:
+    """One GQA attention layer's empty ring-buffer cache."""
+    check_dense_gqa(cfg, spec)
+    C = min(max_len, cfg.window) if spec.kind == "attn_local" else max_len
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+            "pos": torch.full((C,), -1, dtype=torch.int32, device=device)}
+
+
+def _attend_out(cfg, spec, p, x, o):
+    """Attention output projection, the residual, then the FFN block."""
+    B, T = x.shape[:2]
+    h = x + o.reshape(B, T, -1) @ p["attn"]["wo"]
+    y, _ = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
+    return h + y
+
+
+def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p, x,
+                              cache: dict, start: int):
+    """Chunked-prefill twin of :func:`apply_layer_decode`: x (B, T, D),
+    ``start`` the absolute position of x[:, 0] -> (x', cache). Writes the
+    chunk's K/V at slots start..start+T-1 (the caller guarantees
+    start + T <= C: no ring wrap) and attends with an explicit causal ∧
+    valid ∧ window mask through the decode's score -> softmax -> PV
+    composition; at T == 1 it computes exactly the decode step."""
+    check_dense_gqa(cfg, spec)
+    B, T = x.shape[:2]
+    asp = attn_spec(cfg, spec)
+    q, k, v = _gqa_project(cfg, p["attn"], _apply_norm(cfg, p["norm1"], x))
+    qpos = start + torch.arange(T, dtype=torch.int32, device=x.device)
+    posv = qpos[None].expand(B, T)
+    q = apply_rope(q, posv, asp.rope_theta)
+    k = apply_rope(k, posv, asp.rope_theta)
+    cache["k"][:, start:start + T] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + T] = v.to(cache["v"].dtype)
+    cache["pos"][start:start + T] = qpos
+    posa = cache["pos"]
+    mask = ((posa >= 0)[None, None, :]
+            & (posa[None, None, :] <= posv[:, :, None]))     # (B, T, C)
+    if spec.kind == "attn_local" and cfg.window:
+        mask &= (posv[:, :, None] - posa[None, None, :]) < cfg.window
+    o = masked_decode_attention(q, cache["k"], cache["v"], mask, asp)
+    return _attend_out(cfg, spec, p, x, o), cache
+
+
+def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
+                       cache: dict, pos: int):
+    """x (B, 1, D) at absolute position ``pos`` -> (x', cache): the new
+    K/V go to ring slot ``pos % C``; a slot is attended once written, and
+    on an ``attn_local`` layer only within the window."""
+    check_dense_gqa(cfg, spec)
+    B = x.shape[0]
+    asp = attn_spec(cfg, spec)
+    q, k, v = _gqa_project(cfg, p["attn"], _apply_norm(cfg, p["norm1"], x))
+    C = cache["k"].shape[1]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, asp.rope_theta)
+    k = apply_rope(k, posv, asp.rope_theta)
+    slot = pos % C
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = pos
+    posa = cache["pos"]
+    valid = posa >= 0
+    if spec.kind == "attn_local" and cfg.window:
+        valid &= (pos - posa) < cfg.window
+    o = decode_attention(q, cache["k"], cache["v"],
+                         valid[None].expand(B, C), asp)
+    return _attend_out(cfg, spec, p, x, o), cache

@@ -1,6 +1,8 @@
 """LM: the decoder-only model over LayerSpecs (the reference's
 ``models/model.py``): the training forward (``hidden_states``,
-``logits``, the chunked ``loss``) and the parts the serving engine calls.
+``logits``, the chunked ``loss``), the parts the serving engine calls,
+and the dense ring-buffer decode (``init_cache``, ``decode_step``,
+``prefill_chunk``, ``prefill``).
 
 Layers are grouped into repeating units; each group's parameters are
 stacked on a leading ``(repeats, ...)`` axis, exactly the reference's
@@ -26,7 +28,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import LayerSpec, apply_layer_train, init_layer
+from repro_torch.models.blocks import (LayerSpec, apply_layer_decode,
+                                      apply_layer_prefill_chunk,
+                                      apply_layer_train, init_layer,
+                                      init_layer_cache)
 from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
                                        softcap)
 
@@ -163,9 +168,7 @@ class LM:
         """tokens (B, S) -> (final-normed hidden states (B, S, D) bf16,
         aux loss). Each group's stacked layers run in order."""
         cfg = self.cfg
-        x = self._cast(params["embed"])[tokens.long()]
-        if cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g, gp in zip(self.groups, params["groups"]):
             for r in range(g.repeats):
@@ -200,3 +203,81 @@ class LM:
         cnt = torch.tensor(float(targets.numel()), device=x.device)
         loss = tot / torch.clamp(cnt, min=1.0)
         return loss + aux, {"nll": loss, "aux": aux, "tokens": cnt}
+
+    # ------------------------------------------------------------------
+    # dense ring-buffer decode (no gradients flow)
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                   device=None) -> tuple:
+        """Empty caches, one dict per group with each unit position's
+        layer caches stacked on a leading ``(repeats, ...)`` axis, as the
+        reference lays them out; on the card unless ``device="cpu"``."""
+        device = resolve_device(device)
+        caches = []
+        for g in self.groups:
+            gc = {}
+            for j, spec in enumerate(g.unit):
+                one = init_layer_cache(self.cfg, spec, batch, max_len, dtype,
+                                       device=device)
+                gc[f"pos{j}"] = {k: torch.stack([t] * g.repeats)
+                                 for k, t in one.items()}
+            caches.append(gc)
+        return tuple(caches)
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = self._cast(params["embed"])[tokens.long()]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        return x
+
+    def _run_cached(self, params, cache, x, layer_fn):
+        """Every layer in order, each with its view of ``cache`` (updated
+        in place), then the final norm and the head -> f32 logits."""
+        for g, gp, gc in zip(self.groups, params["groups"], cache):
+            for r in range(g.repeats):          # the reference's scan
+                for j, spec in enumerate(g.unit):
+                    pj = map_tree(lambda t: self._cast(t[r]), gp[f"pos{j}"])
+                    cj = {k: t[r] for k, t in gc[f"pos{j}"].items()}
+                    x, _ = layer_fn(spec, pj, x, cj)
+        x = self._final_norm(self._cast(params["final_norm"]), x)
+        lg = (x @ self._head(params).to(x.dtype)).to(torch.float32)
+        return softcap(lg, self.cfg.final_softcap)
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
+        """tokens (B, 1) at absolute position ``pos`` -> (logits (B, 1, V)
+        f32, cache updated in place)."""
+        lg = self._run_cached(
+            params, cache, self._embed(params, tokens),
+            lambda spec, p, x, c: apply_layer_decode(self.cfg, spec, p, x, c,
+                                                     int(pos)))
+        return lg, cache
+
+    def supports_chunked_prefill(self) -> bool:
+        """True when every layer has the chunked-prefill path (the GQA
+        attention kinds)."""
+        return (self.cfg.mla is None
+                and all(s.kind in ("attn", "attn_local")
+                        for s in self.specs))
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, cache, tokens: torch.Tensor,
+                      start: int):
+        """tokens (B, T) at absolute positions start..start+T-1 ->
+        (logits (B, T, V) f32, cache updated in place): one forward over
+        the chunk instead of T decode steps. The caller guarantees that
+        start + T fits every layer's cache (no ring wrap)."""
+        lg = self._run_cached(
+            params, cache, self._embed(params, tokens),
+            lambda spec, p, x, c: apply_layer_prefill_chunk(
+                self.cfg, spec, p, x, c, int(start)))
+        return lg, cache
+
+    def prefill(self, params, cache, tokens: torch.Tensor):
+        """Sequential prefill through :meth:`decode_step`, one token at a
+        time (the reference loop) -> (last logits (B, 1, V), cache)."""
+        lg = None
+        for i in range(tokens.shape[1]):
+            lg, cache = self.decode_step(params, cache, tokens[:, i:i + 1],
+                                         i)
+        return lg, cache

@@ -25,7 +25,6 @@ jit); ``_forward`` returns the same pool objects.
 """
 from __future__ import annotations
 
-import math
 import time
 import zlib
 from typing import Dict, List, Optional
@@ -170,9 +169,7 @@ class Engine:
         model, mc = self.model, self.model.cfg
         self.forward_calls += 1
         B, T = tokens.shape
-        x = model._cast(params["embed"])[tokens]
-        if mc.embed_scale:
-            x = x * torch.tensor(math.sqrt(mc.d_model), dtype=x.dtype)
+        x = model._embed(params, tokens)
         qpos = pos[:, None] + torch.arange(T, device=tokens.device)[None]
         carr = torch.arange(self.C_max, device=tokens.device)
         mask = carr[None, None, :] <= qpos[:, :, None]     # (B, T, C_max)

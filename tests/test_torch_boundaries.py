@@ -3,6 +3,7 @@ and its entry points run on the card unless the caller asks for the CPU."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -85,5 +86,13 @@ def test_cpu_on_request_and_bad_devices():
 
 
 def test_launcher_needs_kv_quant():
-    with pytest.raises(SystemExit, match="not ported"):
-        serve_launcher.serve(["--smoke", "--device", "cpu"])
+    """``--kv-quant`` selects the paged engine; without it the launcher
+    serves through the dense ring-buffer cache, and no engine exists."""
+    args = ["--smoke", "--device", "cpu", "--batch", "1", "--prompt-len",
+            "4", "--gen", "2", "--max-len", "16"]
+    dense = serve_launcher.serve(args)
+    assert dense["path"] == "dense" and dense["engine"] is None
+    paged = serve_launcher.serve(args + ["--kv-quant", "bf16",
+                                         "--page-size", "4"])
+    assert paged["path"] == "paged" and paged["engine"] is not None
+    np.testing.assert_array_equal(dense["tokens"], paged["tokens"])

@@ -275,12 +275,15 @@ def test_train_config_refuses_unported(world1):
         TrainConfig(mode="fsdp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(hierarchy="two_level")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(pipeline_chunks=2)
     with pytest.raises(TypeError):
         TrainConfig(local_steps=4)
-    # every level solver is ported: each scheme's exchange builds
+    # the pipelined schedule is ported; a K below 1 is refused, as the
+    # reference's engine refuses it
     model = LM(get_smoke_config("lm-100m"))
+    with pytest.raises(ValueError, match="pipeline_chunks"):
+        exchange_engine(model, TrainConfig(policy="orq-9",
+                                           pipeline_chunks=0))
+    # every level solver is ported: each scheme's exchange builds
     for name, method in (("terngrad", "terngrad"), ("bingrad-b", "bingrad_b"),
                          ("signsgd", "signsgd")):
         pex = exchange_engine(model, TrainConfig(policy=name))
@@ -318,14 +321,15 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--mode", "fsdp"],
-                                   ["--pipeline-chunks", "2"],
+                                   ["--hierarchy", "two_level"],
                                    ["--bit-schedule", "default=orq@5..3"],
                                    ["--resume", "x"],
-                                   ["--per-leaf-exchange"]])
+                                   ["--pods", "2"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     """Refused while parsing, before any process group or model exists.
     (Every ``--quant`` scheme trains now; see
-    ``test_torch_train_schemes.py``.)"""
+    ``test_torch_train_schemes.py``; ``--pipeline-chunks`` and
+    ``--per-leaf-exchange`` run: ``test_torch_train_local.py``.)"""
     from repro_torch.launch import train as launcher
     with pytest.raises(SystemExit) as e:
         launcher.train(["--smoke", "--device", "cpu", *flags])
