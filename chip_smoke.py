@@ -41,7 +41,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             per-leaf and pipelined schedules give them: one row of 768,
             one row of 192, 5 rows of 2048 with 1024 valid in the last,
             and the last K = 4 span (16,514 rows, 768 valid in the last),
-            by the same rules.
+            by the same rules. Then the same five kernels at the shapes
+            only fsdp and the two-level hierarchy give them (FSDP_SHAPES:
+            the fsdp reduce-scatter's L = 4 chunks of 16,515 rows, the
+            67,642,752-value two-level intra shard as one buffer of
+            33,029 rows, a per-leaf fsdp slice of 288 rows), each checked
+            and timed beside its bound.
 4. serve    the serving path: ``repro_torch.launch.serve`` on full-width
             lm-100m (bf16 weights from seed 0), orq-9 KV pages, page 16,
             batch 8, context 512, prefill chunk 64, 8 requests of 128
@@ -116,6 +121,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             then device time by category over four dense decode steps.
             Phases 12-14 are plain PyTorch, as in the reference: every
             counter must read 0 after them.
+15. train_fsdp  the launcher with ``--mode fsdp`` (ZeRO-3) on full-width
+            lm-100m, the NCCL world of one: orq-9 and BinGrad-b, 3 steps
+            then 2 with error feedback. Each sharded group is one
+            quantized reduce-scatter (phase 1 only), so the counters must
+            read encode 5, mean 5, each 0, qdq 2 (BinGrad-b:
+            encode_bingrad_fused 7, mean 5, each 0, qdq 2); 2 collective
+            launches a step; wire bytes 70,021,480 / 17,439,312; losses
+            finite; step p50, each run's own peak memory (above what was
+            allocated at its start) and params sha256 printed. Then
+            device time by category over two fsdp orq-9 EF steps;
+            ``--hierarchy two_level`` on this world of one: the flat
+            run's sha256 (encode 3, mean 3); one per-leaf fsdp step: 222
+            launches, 111 encodes and 111 mean decodes. After phase 11's
+            check: the fsdp exchange and its EF residuals of phase 11's
+            five full-width leaves on the 1/64 grid, card (NCCL) against
+            CPU (gloo), bit-equal.
+16. checkpoint  ``--smoke`` fsdp orq-9 with error feedback: 4 steps
+            writing the state after step 2, then ``--resume`` of it: the
+            same params sha256 (encode, mean and qdq 6 each over both
+            runs); the resumed run's ``--checkpoint`` file hashes to
+            its params sha256. Then the save and load of a full-width params
+            checkpoint (541 MB of float32), timed once.
 
 Then the kernels JSON line (all eleven kernels), the ``nvidia-smi``
 name/power line, and last
@@ -138,6 +165,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache (at most 50 MB)
+#: a device time under this share of ``hbm_floor_ms`` is a lost profile
+FLOOR_SLACK = 0.95
 ATOL_ATTEND = 1e-5             # online softmax reorders the f32 sums
 ATOL_LOGITS = 0.25             # bf16 matmuls + 4-bit rounding flips
 ATOL_LOGITS_BIN = 1.0          # bf16 matmuls + 1-bit threshold flips
@@ -196,22 +226,36 @@ def _kernel_events(prof):
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
+def hbm_floor_ms(bytes_moved: int) -> float:
+    """The least device time a call moving ``bytes_moved`` can take even
+    when repeated calls find their inputs in the L2 cache: the bytes beyond
+    the L2's size over the HBM rate."""
+    return max(0, bytes_moved - L2_BYTES) / HBM_BYTES_PER_S * 1e3
+
+
+def device_ms(fn, calls: int = 10, attempts: int = 5,
+              floor_ms: float = 0.0) -> float:
     """Milliseconds of device (kernel) time per call, from torch.profiler:
     the sum of the device times of every kernel ``fn`` launches. Each call
     launches the same kernels, so every kernel's event count is a multiple
     of ``calls`` unless the profiler lost events (seen on the card: one of
-    ten, now and then; once, every event of a profile). Such a profile
-    is taken again; if all ``attempts`` lose events, each kernel of the
-    last profile that recorded any counts as its mean recorded duration
-    times its launches per call (the count rounded up to a multiple of
-    ``calls``), and the loss is reported. If no profile recorded a kernel
-    event, it raises."""
+    ten, now and then; once, every event of a profile; once, events whose
+    recorded durations were short). A profile that lost events, or whose
+    time per call is under ``FLOOR_SLACK`` x ``floor_ms`` (``hbm_floor_ms``
+    of the work: the card cannot be that fast, so kernel events went
+    missing), is taken again, up to ``attempts`` profiles. If none is
+    whole, each profile that recorded kernels gives an estimate: each
+    kernel's mean recorded duration times its launches per call (the count
+    rounded up to a multiple of ``calls``); the median of the estimates
+    that clear the floor is returned. If no estimate clears it, the time
+    is CUDA events around the calls (``time_ms``), which counts host gaps
+    too and so never reads under the device time. Every fallback is
+    reported; it raises if even the events time is under the floor."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    kept = []
+    readings, estimates = [], []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
@@ -220,17 +264,28 @@ def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
         rows = _kernel_events(prof)
-        if rows and all(count % calls == 0 for _, _, count in rows):
-            return sum(r[0] for r in rows) / calls / 1e3
+        per_call = sum(r[0] for r in rows) / calls / 1e3
+        whole = rows and all(count % calls == 0 for _, _, count in rows)
+        if whole and per_call >= FLOOR_SLACK * floor_ms:
+            return per_call
         emit("profiler", lost_events={n[:60]: c for _, n, c in rows},
-             calls=calls)
-        kept = rows or kept
-    rows = kept
-    if not rows:
-        raise AssertionError(f"the profiler recorded no kernel of {fn} in "
-                             f"{attempts} profiles")
-    per_call = sum(us / count * -(-count // calls) for us, _, count in rows)
-    return per_call / 1e3
+             calls=calls, ms=per_call, floor_ms=floor_ms)
+        readings.append(per_call)
+        if rows:
+            estimates.append(sum(us / count * -(-count // calls)
+                                 for us, _, count in rows) / 1e3)
+    cleared = [e for e in estimates if e >= FLOOR_SLACK * floor_ms]
+    if cleared:
+        return statistics.median(cleared)
+    events_ms = time_ms(fn, reps=calls, rounds=3)
+    emit("profiler", fallback="events", readings=readings,
+         estimates=estimates, events_ms=events_ms, floor_ms=floor_ms)
+    if events_ms < FLOOR_SLACK * floor_ms:
+        raise AssertionError(
+            f"device time of {fn} stays under its HBM floor "
+            f"{floor_ms:.6f} ms: profiles {readings}, estimates "
+            f"{estimates}, events {events_ms} ms")
+    return events_ms
 
 
 def _category(kernel_name: str) -> str:
@@ -315,9 +370,10 @@ def check_encode(torch, dev):
         kern = lambda: fe.encode_fused_cuda(*gpu, bits=bits, mode=mode)
         plain = lambda: fe.encode_fused_plain(*gpu, bits=bits, mode=mode)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain)
         moved = nbytes(*gpu, got)
         b_ms, b_by = bound(moved, nb * d * (2 * s + 8))
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain)
         results[name] = dict(
             shape=[nb, d], s=s, bits=bits, mode=mode, mask=masked,
             clip_c=clip_c, words_mismatched=mism,
@@ -346,10 +402,11 @@ def check_encode(torch, dev):
         mism = _mismatch(torch, got, plain())
         ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
             plain, reps=2, rounds=3)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
         moved = nbytes(*args, got)
         s = lv.shape[1]
         b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * s + 8)))
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain, calls=2)
         results[name] = dict(
             shape=[TRAIN_NB, TRAIN_D], s=s, bits=bits, mode="rr",
             mask="exchange", words_mismatched=mism, max_abs_err=float(mism),
@@ -443,7 +500,6 @@ def check_attend(torch, dev):
         kern = lambda: fk.decode_attend_cuda(*args, **kwargs)
         plain = lambda: fk.decode_attend_plain(*args, **kwargs)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain)
         lib_ms = lib_dev_ms = None
         if not cap and name != "fully_masked_row":
             lib = lambda: _library_attend(torch, *args, kwargs["bits"], KV,
@@ -451,6 +507,8 @@ def check_attend(torch, dev):
             lib_ms, lib_dev_ms = time_ms(lib), device_ms(lib)
         moved, ops = attend_work(torch, q, kw_, klv, mask, got)
         b_ms, b_by = bound(moved, ops)
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain)
         walked = fk.walked_tiles(mask, H, KV)
         results[name] = dict(
             B=B, T=T, H=H, KV=KV, hd=hd, padded_hd=fk.padded_head_dim(hd),
@@ -559,9 +617,10 @@ def check_decode(torch, dev):
             mism = _mismatch(torch, got, pl())
             ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
                 pl, reps=2, rounds=3)
-            dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
             moved = nbytes(words, levels, got)
             b_ms, b_by = bound(moved, float(L * nb * TRAIN_D))
+            dev_ms, plain_dev_ms = device_ms(
+                kern, floor_ms=hbm_floor_ms(moved)), device_ms(pl, calls=2)
             key = kname if tag == "bits4" else f"{kname}/{tag}"
             results[key] = dict(
                 shape=[L, nb, TRAIN_D], bits=bits, s=s, mismatched=mism,
@@ -624,9 +683,10 @@ def check_qdq(torch, dev):
     mism = _mismatch(torch, got, pl())
     ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(pl, reps=2,
                                                               rounds=3)
-    dev_ms, plain_dev_ms = device_ms(kern), device_ms(pl, calls=2)
     moved = nbytes(v, lv, rb, mask, got)
     b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * 9 + 8)))
+    dev_ms, plain_dev_ms = device_ms(
+        kern, floor_ms=hbm_floor_ms(moved)), device_ms(pl, calls=2)
     res = dict(shape=[TRAIN_NB, TRAIN_D], s=9, mode="rr", mismatched=mism,
                max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
                device_ms=dev_ms, plain_device_ms=plain_dev_ms, bytes=moved,
@@ -728,9 +788,10 @@ def check_bingrad(torch, dev):
         reps = 20 if nb < 1000 else 10
         ms, plain_ms = time_ms(kern, reps=reps, rounds=3), time_ms(
             plain, reps=2, rounds=3)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
         moved = nbytes(v, mask, lim, words, lv)
         b_ms, b_by = bound(moved, float(nb * d * (3 + 3 * (1 + li))))
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain, calls=2)
         results[name] = dict(
             shape=[nb, d], data=dist, mask=masked, lloyd_iters=li,
             clip_c=clip_c, plan=fb.launch_plan(nb, d, sm)._asdict(),
@@ -780,9 +841,10 @@ def check_bingrad(torch, dev):
         reps = 20 if nb < 1000 else 10
         ms, plain_ms = time_ms(kern, reps=reps, rounds=3), time_ms(
             plain, reps=2, rounds=3)
-        dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
         moved = nbytes(v, b0, mask, idx, part)
         b_ms, b_by = bound(moved, float(nb * d * 3))
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain, calls=2)
         results["pass/" + name] = dict(
             shape=[nb, d], data=dist, mask=masked, exact_case=exact,
             idx_mismatched=idx_mism, counts_mismatched=cnt_mism,
@@ -1045,15 +1107,19 @@ def _train_runs(torch, quant, runs, expect, wire):
     from repro_torch.launch import train as launcher
 
     _zero_counters()
-    torch.cuda.reset_peak_memory_stats()
     out = {}
     for name, extra in runs:
         args = list(TRAIN_ARGS)
         args[args.index("--quant") + 1] = quant
         args += extra
+        # the run's own peak: what earlier phases and runs left allocated
+        # is the base, not counted
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         r = launcher.train(args)
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
         losses = [h["loss"] for h in r["history"]]
         out[name] = r
         emit("train", run=name, args=" ".join(args), wall_s=wall,
@@ -1063,7 +1129,7 @@ def _train_runs(torch, quant, runs, expect, wire):
              collective_launches_per_step=r["collective_launches_per_step"],
              n_params=r["n_params"], world_size=r["world_size"],
              replicas_in_sync=r["replicas_in_sync"],
-             params_sha256=r["params_sha256"])
+             params_sha256=r["params_sha256"], peak_mem_above_start=peak)
         if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
             raise AssertionError(f"train {name}: non-finite loss {losses}")
         if r["wire_bytes_per_worker"] != wire:
@@ -1073,8 +1139,7 @@ def _train_runs(torch, quant, runs, expect, wire):
             raise AssertionError(f"train {name}: replicas out of sync")
     launches = _read_counters()
     emit("train", run=f"{quant} launches", launches=launches,
-         expected=_expect(expect),
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         expected=_expect(expect))
     if launches != _expect(expect):
         raise AssertionError(f"{quant} training launches {launches} != "
                              f"{_expect(expect)}")
@@ -1132,9 +1197,10 @@ def run_other_schemes(torch):
     return total
 
 
-def profile_train(torch, state, quant="orq-9"):
-    """Device time by category over two ``quant`` + EF steps, beside the
-    same steps' wall time without the profiler."""
+def profile_train(torch, state, quant="orq-9", mode="replicated"):
+    """Device time by category over two ``quant`` + EF steps of ``mode``
+    (``state`` is a state of that mode), beside the same steps' wall time
+    without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import get_config
@@ -1147,7 +1213,7 @@ def profile_train(torch, state, quant="orq-9"):
 
     cfg = get_config("lm-100m")
     step_fn = make_train_step(
-        LM(cfg), TrainConfig(policy=QuantPolicy.parse(quant),
+        LM(cfg), TrainConfig(policy=QuantPolicy.parse(quant), mode=mode,
                              error_feedback=True), constant_lr(0.05))
     data = SyntheticLM(cfg.vocab_size, 128, 8, seed=0)
     batches = [data.batch(i, device="cuda") for i in range(2)]
@@ -1168,8 +1234,8 @@ def profile_train(torch, state, quant="orq-9"):
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
     by_cat = _by_category(rows)
-    emit("train_profile", scheme=quant,
-         window=f"2 steps, lm-100m {quant} + EF, batch 8 x 128",
+    emit("train_profile", scheme=quant, mode=mode,
+         window=f"2 steps, lm-100m {mode} {quant} + EF, batch 8 x 128",
          wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
          kernel_launches=sum(r[2] for r in rows),
          device_busy_share=total / 1e3 / (plain_wall * 1e3),
@@ -1270,12 +1336,13 @@ def _timed(torch, name, case, kern, plain, moved, ops, library=None,
     library yardstick, beside the bound."""
     ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(plain, reps=2,
                                                               rounds=3)
-    dev_ms, plain_dev_ms = device_ms(kern), device_ms(plain, calls=2)
     lib_ms = lib_dev_ms = None
     if library is not None:
         lib_ms, lib_dev_ms = time_ms(library, reps=10, rounds=3), device_ms(
             library)
     b_ms, b_by = bound(moved, ops)
+    dev_ms, plain_dev_ms = device_ms(
+        kern, floor_ms=hbm_floor_ms(moved)), device_ms(plain, calls=2)
     res = dict(shape=[TRAIN_NB, TRAIN_D], ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, device_ms=dev_ms,
                plain_device_ms=plain_dev_ms, library_device_ms=lib_dev_ms,
@@ -2113,6 +2180,300 @@ def run_dense_serve(torch):
               lambda: profile_dense_decode(torch, dense_args))
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: fsdp, the two-level hierarchy, checkpoints
+# ---------------------------------------------------------------------------
+
+#: shapes only the fsdp and two-level paths give the kernels (lm-100m,
+#: bucket 2048): name -> (workers L, rows per worker, d, valid values in
+#: each worker's last row). The fsdp buffer at L = 1 is the training shape.
+FSDP_SHAPES = {
+    "fsdp_L4_chunks": (4, 16_515, 2048, 704),     # the fsdp RS at L = 4
+    "intra_shard": (1, 33_029, 2048, 1408),       # the two-level shard
+    "leaf_wq_L1": (1, 288, 2048, 2048),           # a per-leaf fsdp slice
+}
+
+
+def _kernel_times(torch, kern, plain, moved, ops):
+    """ms / device_ms of a kernel and of its plain version, and the
+    bound, at one of FSDP_SHAPES."""
+    b_ms, b_by = bound(moved, ops)
+    return dict(ms=time_ms(kern, reps=5, rounds=3),
+                plain_ms=time_ms(plain, reps=1, rounds=2),
+                device_ms=device_ms(kern, calls=5,
+                                    floor_ms=hbm_floor_ms(moved)),
+                plain_device_ms=device_ms(plain, calls=1), bytes=moved,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_fsdp_shapes(torch, dev):
+    """encode_fused, qdq_fused, decode_fused_mean / _each and
+    encode_bingrad_fused at FSDP_SHAPES against their plain versions, by
+    the rules of ``check_schedule_shapes``, each timed beside its bound;
+    -> kernel -> case -> times."""
+    from repro_torch.core import encode
+    from repro_torch.core import levels as lvmod
+    from repro_torch.kernels import fused_bingrad as fb
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import fused_encode as fe
+
+    g = torch.Generator(device="cpu").manual_seed(15)
+    times, failed = {}, []
+    for case, (L, nb, d, last) in FSDP_SHAPES.items():
+        rows = L * nb
+        one = torch.arange(nb * d, device=dev) < (nb - 1) * d + last
+        mask = one.repeat(L).reshape(rows, d)
+        v = torch.where(mask, (torch.randn((rows, d), generator=g)
+                               * 1e-3).to(dev), 0.0)
+        lv = lvmod.orq_levels(v, mask, 3)
+        rb = _rand_words(torch, g, (rows, d)).to(dev)
+        args = (v, lv, rb, mask, None)
+        words = fe.encode_fused_cuda(*args, bits=4)
+        qdq = fe.qdq_fused_cuda(*args, mode="rr")
+        res = {"encode_fused": _mismatch(
+                   torch, words, fe.encode_fused_plain(*args, bits=4)),
+               "qdq_fused": _mismatch(
+                   torch, qdq, fe.qdq_fused_plain(*args, mode="rr"))}
+        ops = float(rows * d * (2 * 9 + 8))
+        row = {"encode_fused": _kernel_times(
+                   torch, lambda: fe.encode_fused_cuda(*args, bits=4),
+                   lambda: fe.encode_fused_plain(*args, bits=4),
+                   nbytes(*args, words), ops),
+               "qdq_fused": _kernel_times(
+                   torch, lambda: fe.qdq_fused_cuda(*args, mode="rr"),
+                   lambda: fe.qdq_fused_plain(*args, mode="rr"),
+                   nbytes(*args, qdq), ops)}
+        ws = words.reshape(L, nb, encode.packed_words(d, 4))
+        lvs = lv.reshape(L, nb, 9)
+        for kname, plain, cuda in (
+                ("decode_fused_mean", fd.decode_fused_mean_plain,
+                 fd.decode_fused_mean_cuda),
+                ("decode_fused_each", fd.decode_fused_each_plain,
+                 fd.decode_fused_each_cuda)):
+            got = cuda(ws, lvs, d=d, bits=4)
+            res[kname] = _mismatch(torch, got, plain(ws, lvs, d=d, bits=4))
+            row[kname] = _kernel_times(
+                torch, lambda: cuda(ws, lvs, d=d, bits=4),
+                lambda: plain(ws, lvs, d=d, bits=4), nbytes(ws, lvs, got),
+                float(rows * d))
+        for dist in ("q64", "normal"):
+            vb = v if dist == "normal" else torch.where(mask, (torch.randint(
+                -64, 65, (rows, d), generator=g).float() / 64).to(dev), 0.0)
+            bw, blv = fb.encode_bingrad_fused_cuda(vb, mask, None)
+            want_w, want_l = fb.encode_bingrad_fused_plain(vb, mask, None)
+            order = fb.kernel_order_levels(vb, mask, None)
+            own = fe.encode_fused_plain(vb, blv, None, mask, None, bits=1,
+                                        mode="bin")
+            ok = (torch.equal(blv.view(torch.int32), order.view(torch.int32))
+                  and _mismatch(torch, bw, own) == 0)
+            if dist == "q64":
+                ok = ok and torch.equal(blv, want_l) and torch.equal(bw,
+                                                                     want_w)
+            res[f"encode_bingrad_fused/{dist}"] = int(not ok)
+        row["encode_bingrad_fused"] = _kernel_times(
+            torch, lambda: fb.encode_bingrad_fused_cuda(v, mask, None),
+            lambda: fb.encode_bingrad_fused_plain(v, mask, None),
+            nbytes(v, mask, bw, blv), float(rows * d * 6))
+        emit("kernel", case=f"fsdp_{case}", workers=L, rows_per_worker=nb,
+             d=d, valid_last_row=last, mismatched=res, times=row)
+        for kname, t in row.items():
+            times.setdefault(kname, {})[case] = t
+        bad = [k for k, m in res.items() if m]
+        if bad:
+            failed.append((case, bad))
+        del v, mask, lv, rb, words, qdq, ws, lvs
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at the fsdp shapes: {failed}")
+    return times
+
+
+#: lm-100m's fsdp reduce-scatter at L = 1, bucket 2048 (the reference's
+#: ``FsdpExchange`` accounting): 2 collective launches a step
+FSDP_WIRE = {"orq-9": 70_021_480, "bingrad-b": 17_439_312}
+#: 3 steps, then 2 with error feedback: one encode and one mean decode a
+#: step (``quantized_reduce_scatter_mean``), one ``qdq_fused`` an EF step
+#: (``local_qdq_comm_layout``); BinGrad-b's EF levels are one more encode
+FSDP_EXPECT = {
+    "orq-9": {"encode_fused": 5, "decode_fused_mean": 5, "qdq_fused": 2},
+    "bingrad-b": {"encode_bingrad_fused": 7, "decode_fused_mean": 5,
+                  "qdq_fused": 2}}
+#: per-leaf fsdp, orq-9, L = 1: 111 gather calls a step (each stacked leaf
+#: once per layer), one reduce-scatter each: 222 collective launches,
+#: 70,021,380 wire bytes (the reference's per-gather accounting)
+PER_LEAF_FSDP = {"gathers": 111, "launches": 222, "wire": 70_021_380}
+
+
+def run_fsdp_train(torch):
+    """Phase 15: the launcher with ``--mode fsdp`` on full-width lm-100m,
+    a NCCL world of one: orq-9 and BinGrad-b, 3 steps then 2 with error
+    feedback (every counter zeroed just before each scheme's runs and read
+    just after: FSDP_EXPECT); 2 collective launches a step and FSDP_WIRE
+    bytes. ``--hierarchy two_level`` on this world of one is the flat
+    exchange: the same params sha256 as the flat orq-9 run. One per-leaf
+    fsdp step: PER_LEAF_FSDP. -> (launches, the orq-9 EF run's state)."""
+    total, sha, state = {}, {}, None
+    for quant in ("orq-9", "bingrad-b"):
+        name = quant.replace("-", "")
+        launches, out = _train_runs(
+            torch, quant,
+            ((f"{name}_fsdp", ["--steps", "3", "--mode", "fsdp"]),
+             (f"{name}_fsdp_ef", ["--steps", "2", "--mode", "fsdp",
+                                  "--error-feedback"])),
+            FSDP_EXPECT[quant], FSDP_WIRE[quant])
+        for k, r in out.items():
+            sha[k] = r["params_sha256"]
+            if r["collective_launches_per_step"] != 2:
+                raise AssertionError(f"{k}: {r['collective_launches_per_step']}"
+                                     f" collective launches a step")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        if quant == "orq-9":
+            state = out[f"{name}_fsdp_ef"]["state"]
+    launches, out = _train_runs(
+        torch, "orq-9", (("orq9_fsdp_two_level",
+                          ["--steps", "3", "--mode", "fsdp", "--hierarchy",
+                           "two_level"]),),
+        {"encode_fused": 3, "decode_fused_mean": 3}, FSDP_WIRE["orq-9"])
+    two = out["orq9_fsdp_two_level"]["params_sha256"]
+    emit("train_fsdp", run="orq9_fsdp_two_level", params_sha256=two,
+         flat_sha256=sha["orq9_fsdp"], equal_flat=two == sha["orq9_fsdp"])
+    if two != sha["orq9_fsdp"]:
+        raise AssertionError("two_level on a world of one differs from flat")
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    launches, out = _train_runs(
+        torch, "orq-9", (("orq9_fsdp_leaf",
+                          ["--steps", "1", "--mode", "fsdp",
+                           "--per-leaf-exchange"]),),
+        {"encode_fused": PER_LEAF_FSDP["gathers"],
+         "decode_fused_mean": PER_LEAF_FSDP["gathers"]},
+        PER_LEAF_FSDP["wire"])
+    got = out["orq9_fsdp_leaf"]["collective_launches_per_step"]
+    emit("train_fsdp", run="orq9_fsdp_leaf", collective_launches=got,
+         expected=PER_LEAF_FSDP["launches"])
+    if got != PER_LEAF_FSDP["launches"]:
+        raise AssertionError(f"per-leaf fsdp launches {got}")
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    return total, state
+
+
+def check_fsdp_card_vs_cpu(torch, dev, grads):
+    """The fsdp exchange and its EF residuals
+    (``FsdpExchange.exchange_with_residuals``) of the five full-width
+    leaves of phase 11 (final_norm, wq, the FFN's wo, norm1, norm2: 26 M
+    values, sharded as lm-100m's plan shards them), on the 1/64 grid with
+    EF buffers of multiples of 1/512, on the card (NCCL) and on the CPU (a
+    gloo group of the same world), orq-9 and BinGrad-b: bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.fsdp_exchange import FsdpExchange
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import LM
+    from repro_torch.train.step import plan_sharding_shapes
+
+    model = LM(get_config("lm-100m"))
+    ap = model.abstract_params()
+    plan = plan_sharding_shapes(model, ap, dp_axes=("data",),
+                                axis_sizes={"data": 1})
+    sub = _on_grid(torch, _subtree(grads, True))
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    failed = []
+    for scheme in ("orq-9", "bingrad-b"):
+        out = {}
+        for where, group in ((dev, None), ("cpu", gloo)):
+            fex = FsdpExchange.build(
+                QuantPolicy.parse(scheme), _subtree(ap, True), ("data",),
+                paths=_subtree(plan.paths, True),
+                shard_dims=plan.full_shard_dims(), n_shards=1, group=group)
+            bufs = [b.to(where) for b in fex.layout.flatten_groups(sub)]
+            g = torch.Generator().manual_seed(16)
+            ef = tuple(None if n is None else (torch.randint(
+                -8, 9, (n,), generator=g).float() / 512).to(where)
+                for n in fex.ef_group_sizes())
+            outs, res = fex.exchange_with_residuals(
+                bufs, prng.key(17, device=where), None, ef)
+            out[str(where)] = [t.cpu() for t in list(outs) + [
+                r for r in res if r is not None]]
+        mism = [_mismatch(torch, a, b) for a, b in zip(out[str(dev)],
+                                                       out["cpu"])]
+        emit("train_fsdp", what="fsdp exchange + EF of full-width leaves "
+             "on the 1/64 grid, card (NCCL) vs CPU (gloo)", scheme=scheme,
+             n=sum(t.numel() for t in out["cpu"]), mismatched=mism)
+        if any(mism):
+            failed.append(scheme)
+    dist.destroy_process_group(gloo)
+    if failed:
+        raise AssertionError(f"card and CPU fsdp exchanges differ for "
+                             f"{failed}")
+
+
+CKPT_ARGS = ["--smoke", "--arch", "lm-100m", "--quant", "orq-9", "--bucket",
+             "512", "--mode", "fsdp", "--error-feedback", "--batch", "8",
+             "--seq", "64", "--seed", "0", "--log-every", "1", "--steps",
+             "4"]
+
+
+def run_checkpoint(torch):
+    """Phase 16: ``--smoke`` fsdp orq-9 with error feedback, 4 steps
+    writing its state after step 2, then a run resumed from that state:
+    the same params sha256 (6 steps: encode, mean decode and qdq 6 each).
+    Then the save and load of a full-width params checkpoint (541 MB of
+    float32), timed once. -> launches."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import LM
+    from repro_torch.utils.pytree import tree_leaves
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ck = f"{tmp}/state"
+    _zero_counters()
+    whole = launcher.train(CKPT_ARGS + ["--state-checkpoint", ck,
+                                        "--checkpoint-at", "2"])
+    resumed = launcher.train(CKPT_ARGS + ["--resume", ck,
+                                          "--checkpoint", f"{tmp}/final"])
+    launches = _read_counters()
+    want = _expect({"encode_fused": 6, "decode_fused_mean": 6,
+                    "qdq_fused": 6})
+    same = whole["params_sha256"] == resumed["params_sha256"]
+    emit("checkpoint", run="fsdp orq-9 EF, resume after step 2",
+         params_sha256=whole["params_sha256"],
+         resumed_sha256=resumed["params_sha256"], equal=same,
+         resumed_steps=len(resumed["step_s"]), launches=launches,
+         expected=want)
+    final, _ = load_checkpoint(f"{tmp}/final", resumed["state"].params)
+    digest = launcher.params_digest(final)
+    emit("checkpoint", what="--checkpoint of the resumed run",
+         params_sha256=digest, equal=digest == resumed["params_sha256"])
+    if not same or launches != want or digest != resumed["params_sha256"]:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one, or its params file from "
+                             "its params")
+    params = LM(get_config("lm-100m")).init(torch.Generator().manual_seed(0),
+                                            device="cuda")
+    path = f"{tmp}/params"
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, step=0)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = load_checkpoint(path, params)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                  tree_leaves(params)))
+    emit("checkpoint", what="full-width lm-100m params, npz (compressed)",
+         bytes=sum(t.numel() * 4 for t in tree_leaves(params)),
+         file_bytes=Path(path + ".npz").stat().st_size, save_s=save_s,
+         load_s=load_s, equal=equal)
+    if not equal:
+        raise AssertionError("the params checkpoint does not round-trip")
+    return launches
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -2160,6 +2521,7 @@ def main() -> int:
     bgr = check_bingrad(torch, dev)
     mpk = check_multipass_kernels(torch, dev)
     check_schedule_shapes(torch, dev)
+    fsdp_times = check_fsdp_shapes(torch, dev)
     serve_launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
     profile_decode(torch, eng)
@@ -2180,8 +2542,13 @@ def main() -> int:
         check_exchange_card_vs_cpu(torch, dev)
         pipe_launches = run_pipelined_train(torch, {**k1_sha, **bin_sha})
         leaf_launches = run_per_leaf_train(torch)
+        fsdp_launches, state = run_fsdp_train(torch)
+        profile_train(torch, state, "orq-9", mode="fsdp")
+        del state
+        ckpt_launches = run_checkpoint(torch)
         grads_loss = full_width_grads(torch, dev)
         check_per_leaf_card_vs_cpu(torch, dev, grads_loss[0])
+        check_fsdp_card_vs_cpu(torch, dev, grads_loss[0])
         mp_launches = run_multipass_path(torch, dev, grads_loss)
         check_theory(torch, grads_loss[0])
         _all_zero(torch, "train_local card vs CPU",
@@ -2199,7 +2566,9 @@ def main() -> int:
              "train_other_schemes": other_launches,
              "multipass_exchange": mp_launches,
              "train_pipelined": pipe_launches,
-             "train_per_leaf": leaf_launches}
+             "train_per_leaf": leaf_launches,
+             "train_fsdp": fsdp_launches,
+             "checkpoint": ckpt_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")
@@ -2219,35 +2588,43 @@ def main() -> int:
         return {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "device_ms")}
 
+    def fsdp(name):
+        return {"fsdp_shapes": fsdp_times[name]}
+
     e, a = enc["decode_rows16"], att["decode_b8"]
     kernels = [
         row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
             "src/repro/kernels/fused_encode.py:255", e,
             train_shape=shape_of(enc["train_main_shape"]),
             train_shape_bits1=shape_of(enc["train_main_shape_bits1"]),
-            train_shape_bits3=shape_of(enc["train_main_shape_bits3"])),
+            train_shape_bits3=shape_of(enc["train_main_shape_bits3"]),
+            **fsdp("encode_fused")),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
             "src/repro/kernels/fused_kv.py:70", a,
             prefill_t64=shape_of(att["prefill_t64"]),
             serve_positions=shape_of(att["serve_positions"]),
             hd16=shape_of(att["hd16"]), hd256=shape_of(att["hd256"])),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
-            "src/repro/kernels/fused_encode.py:283", qdq),
+            "src/repro/kernels/fused_encode.py:283", qdq,
+            **fsdp("qdq_fused")),
         row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"],
             bits1=shape_of(dec["decode_fused_mean/bits1"]),
-            L4=shape_of(dec["decode_fused_mean/L4"])),
+            L4=shape_of(dec["decode_fused_mean/L4"]),
+            **fsdp("decode_fused_mean")),
         row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:107",
             dec["decode_fused_each"],
             bits1=shape_of(dec["decode_fused_each/bits1"]),
-            L4=shape_of(dec["decode_fused_each/L4"])),
+            L4=shape_of(dec["decode_fused_each/L4"]),
+            **fsdp("decode_fused_each")),
         row("encode_bingrad_fused", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/fused_bingrad.py:102",
             bgr["train_main_shape"], kv_shape=shape_of(bgr["kv_rows16"]),
             lloyd2_clip=shape_of(bgr["train_lloyd2_clip2.5"]),
             d4096=shape_of(bgr["train_d4096"]),
-            d2047=shape_of(bgr["train_d2047"])),
+            d2047=shape_of(bgr["train_d2047"]),
+            **fsdp("encode_bingrad_fused")),
         row("bingrad_pass", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/bingrad.py:52", bgr["pass/train_main_shape"],
             kv_shape=shape_of(bgr["pass/kv_rows16"]),

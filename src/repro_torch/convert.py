@@ -33,16 +33,18 @@ def params_from_jax(tree, device=None):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v) for v in node)
-        return _leaf(node, dev)
+        return None if node is None else _leaf(node, dev)
 
     return walk(tree)
 
 
 def state_from_jax(state, device=None):
-    """A reference ``TrainState`` of the replicated mode (params, SGD
-    momentum, params-shaped EF residuals or None, step), its leaves
-    fetched as numpy (e.g. ``jax.tree_util.tree_map(np.asarray, state)``
-    or the state itself) -> the port's ``TrainState`` on ``device``."""
+    """A reference ``TrainState`` (params, SGD momentum, EF residuals as
+    a params-shaped tree, a tuple of group buffers or None, step), its
+    leaves fetched as numpy (e.g. ``jax.tree_util.tree_map(np.asarray,
+    state)`` or the state itself) -> the port's ``TrainState`` on
+    ``device``. The arrays are the global ones: on one worker they are
+    its fsdp shards too."""
     from repro_torch.train.state import TrainState
 
     return TrainState(

@@ -85,6 +85,20 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return _done([_start_all_gather(x, group)])[0]
 
 
+def scatter_mean(parts: torch.Tensor, group) -> torch.Tensor:
+    """Full-precision reduce-scatter mean: ``parts`` (L, ...) holds one
+    slice per destination worker; returns this worker's slice of the
+    across-worker mean. One all_to_all, then the L received slices summed
+    in rank order and divided by L (``lax.psum_scatter(...) / L``). The
+    order of additions is fixed, so NCCL and gloo agree bit for bit, and
+    a + b commutes, so at L <= 2 it is any backend's order."""
+    recv = _done([_start_all_to_all(parts, group)])[0]
+    total = recv[0]
+    for j in range(1, recv.shape[0]):
+        total = total + recv[j]
+    return total / recv.shape[0]
+
+
 def _chunk_spans(n_rows: int, k) -> list:
     """Split ``n_rows`` bucket rows into ``k`` contiguous [a, b) spans
     (clamped to [1, n_rows]; the first ``n_rows % k`` spans get the extra
@@ -154,7 +168,8 @@ def quantized_reduce_scatter_mean(flat: torch.Tensor, qz: Quantizer,
                                   pipeline_chunks: int = 1) -> torch.Tensor:
     """Each worker holds a full local gradient ``flat`` (n,). Returns this
     worker's (chunk,) slice of the across-worker mean, chunk = ceil(n/L).
-    The fp scheme sums over the group and divides by L.
+    The fp scheme is :func:`scatter_mean` (an all_to_all and a sum in rank
+    order).
     ``pipeline_chunks`` splits the exchange into that many bucket-row
     spans, bit-identical to the single-shot schedule."""
     n = flat.shape[0]
@@ -163,9 +178,8 @@ def quantized_reduce_scatter_mean(flat: torch.Tensor, qz: Quantizer,
     me = rank if worker_id is None else worker_id
     padded = F.pad(flat, (0, L * chunk - n))
     if qz.is_identity:
-        total = padded.clone()
-        dist.all_reduce(total, group=group)
-        return total[me * chunk:(me + 1) * chunk] / L
+        return scatter_mean(padded.to(torch.float32).reshape(L, chunk),
+                            group)
     valid = _valid_parts(valid, n, L, chunk, flat.device)
     return _rs_mean_parts(padded.reshape(L, chunk), valid, qz,
                           prng.fold_in(key, me), group,

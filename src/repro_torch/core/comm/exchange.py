@@ -19,10 +19,15 @@
                         quantizer, keyed by the crc32 of its path;
     policy_stats /      static accounting without a tree: launches and
     per_leaf_stats /    wire bytes per worker of a policy, of the per-leaf
-    fused_stats         exchange and of the fused one (benchmarks).
+    fused_stats         exchange and of the fused one (benchmarks);
+    link_stats /        the same per link (intra-pod and inter-pod bytes)
+    policy_link_stats / for the two-level hierarchy, from a policy or from
+    observed_link_stats an engine as built.
 
 The compute side goes through ``core/comm/wire.py`` and its kernels.
-The two-level (``intra_axes``) mode is not ported yet (ROADMAP.md).
+With an ``intra_group`` (the two-level mode, ``hierarchical.py``) an
+engine's ``group`` is the inter-pod group it quantizes over and
+``intra_group`` the pod it averages over in full precision first.
 """
 from __future__ import annotations
 
@@ -36,9 +41,10 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.api import QuantConfig
-from repro_torch.core.comm import wire
+from repro_torch.core.comm import hierarchical, wire
 from repro_torch.core.comm.collectives import (local_qdq_comm_layout,
-                                               quantized_all_reduce_mean)
+                                               quantized_all_reduce_mean,
+                                               world)
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quantizers import Quantizer
 from repro_torch.utils.pytree import (tree_flatten_with_path, tree_leaves,
@@ -108,6 +114,13 @@ class GradientExchange:
     """Fused Algorithm 2 exchange over a flat buffer, on the process group
     ``group`` (None: the default group).
 
+    With an ``intra_group`` (the pod, ``hierarchical.pod_groups``) the
+    exchange is two-level: a full-precision reduce-scatter mean over the
+    pod, the quantized Algorithm 2 on the resulting shard over ``group``
+    (the workers of the same intra index across pods), and a
+    full-precision all-gather back over the pod. Without one it is the
+    flat exchange.
+
     ``max_chunk_elems`` optionally caps the per-collective buffer size:
     the buffer is split into ceil(n / cap) contiguous spans, each
     exchanged independently with the key folded by the span index;
@@ -123,8 +136,8 @@ class GradientExchange:
     group: Any = None
     server_requant: bool = True
     max_chunk_elems: Optional[int] = None
-    intra_axes: Tuple[str, ...] = ()
     pipeline_chunks: int = 1
+    intra_group: Any = None
 
     def __post_init__(self):
         if self.max_chunk_elems is not None and self.max_chunk_elems <= 0:
@@ -133,10 +146,6 @@ class GradientExchange:
         if self.pipeline_chunks < 1:
             raise ValueError(f"pipeline_chunks must be >= 1, got "
                              f"{self.pipeline_chunks}")
-        if self.intra_axes:
-            raise NotImplementedError(
-                "the two-level (intra_axes) exchange is not ported to "
-                "repro_torch yet (see ROADMAP.md)")
 
     def spans(self, n: int) -> List[Tuple[int, int]]:
         cap = self.max_chunk_elems
@@ -147,27 +156,91 @@ class GradientExchange:
     def _span_key(self, key: torch.Tensor, i: int) -> torch.Tensor:
         return prng.fold_in(key, i) if self.max_chunk_elems else key
 
-    def exchange_flat(self, flat: torch.Tensor, key: torch.Tensor, *,
-                      worker_id: Optional[int] = None) -> torch.Tensor:
-        """(n,) local gradient buffer -> (n,) across-worker mean, identical
-        on every worker: one quantized all-reduce per span."""
+    # -- two-level helpers ---------------------------------------------------
+    @property
+    def two_level(self) -> bool:
+        return self.intra_group is not None
+
+    def _intra_fold(self, key: torch.Tensor, intra_id=None) -> torch.Tensor:
+        """Decorrelate the rounding streams of the intra shards; no fold
+        in flat mode, so a degenerate two_level keys like flat."""
+        if not self.two_level:
+            return key
+        if intra_id is None:
+            intra_id = world(self.intra_group)[1]
+        return prng.fold_in(key, intra_id)
+
+    def intra_scatter(self, flat: torch.Tensor):
+        """(n,) buffer -> (shard, valid) after the full-precision intra
+        reduce-scatter mean; ``(flat, None)`` in flat mode."""
+        if not self.two_level:
+            return flat, None
+        return (hierarchical.intra_reduce_scatter_mean(flat,
+                                                       self.intra_group),
+                hierarchical.shard_valid_mask(flat.shape[0],
+                                              self.intra_group, flat.device))
+
+    def intra_gather(self, shard: torch.Tensor, n: int) -> torch.Tensor:
+        """Inverse of :meth:`intra_scatter` (full-precision all_gather)."""
+        if not self.two_level:
+            return shard
+        return hierarchical.intra_all_gather(shard, self.intra_group, n)
+
+    def exchange_shard(self, shard: torch.Tensor, key: torch.Tensor, *,
+                       valid=None, worker_id: Optional[int] = None,
+                       intra_id: Optional[int] = None) -> torch.Tensor:
+        """Quantized Algorithm 2 of an (already intra-averaged) shard over
+        ``group`` only, one all-reduce per span; ``valid`` keeps scatter
+        padding out of the level fits."""
+        key = self._intra_fold(key, intra_id)
         outs = [quantized_all_reduce_mean(
-                    flat[a:b], self.qz, self._span_key(key, i),
+                    shard[a:b], self.qz, self._span_key(key, i),
                     group=self.group, worker_id=worker_id,
                     server_requant=self.server_requant,
+                    valid=None if valid is None else valid[a:b],
                     pipeline_chunks=self.pipeline_chunks)
-                for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
+                for i, (a, b) in enumerate(self.spans(shard.shape[0]))]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def local_qdq_shard(self, shard: torch.Tensor, key: torch.Tensor, *,
+                        valid=None, worker_id: Optional[int] = None,
+                        intra_id: Optional[int] = None) -> torch.Tensor:
+        """This worker's own dequantized shard, bit-identical to its
+        :meth:`exchange_shard` phase-1 contribution (same spans, keys and
+        mask): two-level error feedback lives on this shard."""
+        key = self._intra_fold(key, intra_id)
+        outs = [local_qdq_comm_layout(
+                    shard[a:b], self.qz, self._span_key(key, i),
+                    group=self.group, worker_id=worker_id,
+                    valid=None if valid is None else valid[a:b])
+                for i, (a, b) in enumerate(self.spans(shard.shape[0]))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def exchange_flat(self, flat: torch.Tensor, key: torch.Tensor, *,
+                      worker_id: Optional[int] = None,
+                      intra_id: Optional[int] = None) -> torch.Tensor:
+        """(n,) local gradient buffer -> (n,) across-worker mean, identical
+        on every worker. Flat: one quantized all-reduce per span. Two-level:
+        fp intra scatter -> quantized shard exchange -> fp intra gather
+        (``worker_id`` / ``intra_id`` are the inter / intra indices)."""
+        if not self.two_level:
+            return self.exchange_shard(flat, key, worker_id=worker_id)
+        shard, valid = self.intra_scatter(flat)
+        mean = self.exchange_shard(shard, key, valid=valid,
+                                   worker_id=worker_id, intra_id=intra_id)
+        return self.intra_gather(mean, flat.shape[0])
 
     def local_qdq_flat(self, flat: torch.Tensor, key: torch.Tensor, *,
                        worker_id: Optional[int] = None) -> torch.Tensor:
         """This worker's own dequantized buffer, bit-identical to its
-        phase-1 contribution (same spans, layout and folded keys)."""
-        outs = [local_qdq_comm_layout(
-                    flat[a:b], self.qz, self._span_key(key, i),
-                    group=self.group, worker_id=worker_id)
-                for i, (a, b) in enumerate(self.spans(flat.shape[0]))]
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        phase-1 contribution (same spans, layout and folded keys). Flat
+        mode only: a two-level residual lives on the intra shard."""
+        if self.two_level:
+            raise ValueError(
+                "local_qdq_flat is the flat-mode residual; a two-level "
+                "engine's residual lives on the intra shard: use "
+                "intra_scatter + local_qdq_shard")
+        return self.local_qdq_shard(flat, key, worker_id=worker_id)
 
     def qdq_local_flat(self, flat: torch.Tensor,
                        key: torch.Tensor) -> torch.Tensor:
@@ -326,17 +399,23 @@ class PartitionedExchange:
     @classmethod
     def build(cls, policy: QuantPolicy, tree, group=None, *, paths=None,
               max_chunk_elems: Optional[int] = None,
-              intra_axes: Tuple[str, ...] = (),
-              pipeline_chunks: int = 1) -> "PartitionedExchange":
+              pipeline_chunks: int = 1,
+              intra_group=None) -> "PartitionedExchange":
+        """``group`` is the quantized (inter) group; an ``intra_group``
+        (the pod) makes every group's engine two-level."""
         layout = PolicyLayout.from_tree(tree, policy, paths=paths)
         engines = tuple(
             GradientExchange(g.cfg.to_quantizer(), group,
                              server_requant=g.cfg.server_requant,
                              max_chunk_elems=max_chunk_elems,
-                             intra_axes=tuple(intra_axes),
-                             pipeline_chunks=pipeline_chunks)
+                             pipeline_chunks=pipeline_chunks,
+                             intra_group=intra_group)
             for g in layout.groups)
         return cls(layout=layout, engines=engines)
+
+    @property
+    def two_level(self) -> bool:
+        return bool(self.engines) and self.engines[0].two_level
 
     def _group_key(self, key: torch.Tensor, gi: int) -> torch.Tensor:
         # a single group is the uniform fused exchange: its key stays
@@ -367,6 +446,50 @@ class PartitionedExchange:
             else eng.local_qdq_flat(buf, self._group_key(key, gi),
                                     worker_id=worker_id)
             for gi, (eng, buf) in enumerate(zip(self.engines, bufs)))
+
+    # -- two-level shard parts ---------------------------------------------
+    def intra_scatter_parts(self, bufs: Sequence[torch.Tensor]):
+        """Per-group fp intra reduce-scatter mean: (shards, valids)."""
+        pairs = [eng.intra_scatter(buf)
+                 for eng, buf in zip(self.engines, bufs)]
+        return tuple(p[0] for p in pairs), tuple(p[1] for p in pairs)
+
+    def exchange_shard_parts(self, shards: Sequence[torch.Tensor], key,
+                             valids, *, worker_id: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+        """Per-group quantized shard exchange over the inter group (keys
+        folded per group as in :meth:`exchange_parts`)."""
+        return tuple(
+            eng.exchange_shard(s, self._group_key(key, gi), valid=v,
+                               worker_id=worker_id)
+            for gi, (eng, s, v) in enumerate(zip(self.engines, shards,
+                                                 valids)))
+
+    def local_qdq_shard_parts(self, shards: Sequence[torch.Tensor], key,
+                              valids, *, worker_id: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+        """Per-group local shard quantize -> dequantize, bit-consistent
+        with :meth:`exchange_shard_parts`; identity groups pass through."""
+        return tuple(
+            s if eng.qz.is_identity
+            else eng.local_qdq_shard(s, self._group_key(key, gi), valid=v,
+                                     worker_id=worker_id)
+            for gi, (eng, s, v) in enumerate(zip(self.engines, shards,
+                                                 valids)))
+
+    def intra_gather_parts(self, shards: Sequence[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, ...]:
+        """Per-group fp intra all-gather back to full group buffers."""
+        return tuple(eng.intra_gather(s, g.size) for eng, s, g in
+                     zip(self.engines, shards, self.layout.groups))
+
+    def ef_shard_sizes(self, n_intra: int) -> Tuple[Optional[int], ...]:
+        """Per-group two-level residual lengths (one intra shard per
+        worker); None for identity groups."""
+        return tuple(
+            None if eng.qz.is_identity
+            else hierarchical.intra_chunk_len(g.size, n_intra)
+            for eng, g in zip(self.engines, self.layout.groups))
 
     def qdq_local_parts(self, bufs: Sequence[torch.Tensor],
                         key) -> Tuple[torch.Tensor, ...]:
@@ -514,6 +637,141 @@ def policy_stats(policy: QuantPolicy, path_sizes, n_workers: int, *,
         bytes_ += eng.wire_bytes_per_worker(n, n_workers)
         labels.append(cfg.name)
     return launches, bytes_, tuple(labels)
+
+
+def _zero_links() -> Dict[str, float]:
+    return {"ici_bytes": 0.0, "dcn_bytes": 0.0, "dcn_q_bytes": 0.0,
+            "launches": 0.0}
+
+
+def link_stats(qz: Quantizer, n: int, *, n_intra: int, n_inter: int,
+               two_level: bool, server_requant: bool = True,
+               sharded: bool = False,
+               max_chunk_elems: Optional[int] = None,
+               pipeline_chunks: int = 1,
+               sync_every: int = 1) -> Dict[str, float]:
+    """Per-link bytes one worker transmits for one exchange of ``n``
+    elements on (n_inter pods) x (n_intra workers a pod):
+
+        ici_bytes    within a pod
+        dcn_bytes    across pods
+        dcn_q_bytes  the quantized part of dcn_bytes
+        launches     collective launches (the fp intra phases included)
+
+    all_to_all / all_gather traffic is uniformly addressed, so
+    (n_inter-1)/n_inter of a flat collective's bytes cross pods; a ring
+    reduce-scatter or all-gather over one axis sends (L-1)/L of the
+    payload per worker. ``sharded=True`` is the fsdp phase-1-only
+    reduce-scatter. ``pipeline_chunks`` multiplies the quantized launches
+    and leaves the bytes. ``sync_every=H > 1`` prices the temporal
+    hierarchy per step (:func:`_amortize_sync`)."""
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    L = n_intra * n_inter
+    dcn_frac = (n_inter - 1) / n_inter if n_inter > 1 else 0.0
+    if not two_level:
+        if sharded:
+            launches, total = GradientExchange.rs_stats(
+                qz, n, L, pipeline_chunks=pipeline_chunks)
+        else:
+            eng = GradientExchange(qz, server_requant=server_requant,
+                                   max_chunk_elems=max_chunk_elems,
+                                   pipeline_chunks=pipeline_chunks)
+            launches = eng.collective_launches(n, L)
+            total = eng.wire_bytes_per_worker(n, L)
+        dcn = total * dcn_frac
+        st = {"ici_bytes": total - dcn, "dcn_bytes": dcn,
+              "dcn_q_bytes": 0.0 if qz.is_identity else dcn,
+              "launches": float(launches)}
+        return _amortize_sync(st, n, n_intra, sync_every)
+    shard = -(-n // n_intra)
+    ici = 4.0 * n * (n_intra - 1) / n_intra        # intra reduce-scatter
+    launches = 1
+    if sharded:
+        l_i, inter_total = GradientExchange.rs_stats(
+            qz, shard, n_inter, pipeline_chunks=pipeline_chunks)
+    else:
+        eng = GradientExchange(qz, server_requant=server_requant,
+                               max_chunk_elems=max_chunk_elems,
+                               pipeline_chunks=pipeline_chunks)
+        l_i = eng.collective_launches(shard, n_inter)
+        inter_total = eng.wire_bytes_per_worker(shard, n_inter)
+        ici += 4.0 * n * (n_intra - 1) / n_intra   # final intra all-gather
+        launches += 1
+    launches += l_i
+    dcn = inter_total * dcn_frac
+    st = {"ici_bytes": ici + inter_total - dcn, "dcn_bytes": dcn,
+          "dcn_q_bytes": 0.0 if qz.is_identity else dcn,
+          "launches": float(launches)}
+    return _amortize_sync(st, n, n_intra, sync_every)
+
+
+def _amortize_sync(st: Dict[str, float], n: int, n_intra: int,
+                   sync_every: int) -> Dict[str, float]:
+    """One exchange's link stats amortized over an H-step window, plus
+    the full-precision intra all-reduce every inner step pays."""
+    if sync_every <= 1:
+        return st
+    st = {k: v / sync_every for k, v in st.items()}
+    if n_intra > 1:
+        st["ici_bytes"] += 8.0 * n * (n_intra - 1) / n_intra
+        st["launches"] += 1.0
+    return st
+
+
+def policy_link_stats(policy: QuantPolicy, path_sizes, *, n_intra: int,
+                      n_inter: int, two_level: bool, sharded_paths=None,
+                      max_chunk_elems: Optional[int] = None,
+                      pipeline_chunks: int = 1, sync_every: int = 1
+                      ) -> Tuple[Dict[str, float], Tuple[str, ...]]:
+    """:func:`link_stats` summed over a policy's groups of ``[(path,
+    size), ...]`` leaves, and the group labels. Sharded leaves are rounded
+    up to a multiple of the worker count, as in :func:`policy_stats`."""
+    L = n_intra * n_inter
+    sharded_paths = frozenset(sharded_paths or ())
+    groups: Dict[Tuple[QuantConfig, bool], int] = {}
+    for path, size in path_sizes:
+        key = (policy.resolve(path), path in sharded_paths)
+        groups[key] = groups.get(key, 0) + int(size)
+    total, labels = _zero_links(), []
+    for (cfg, sharded), n in groups.items():
+        if sharded:
+            n = -(-n // L) * L
+        st = link_stats(cfg.to_quantizer(), n, n_intra=n_intra,
+                        n_inter=n_inter, two_level=two_level,
+                        server_requant=cfg.server_requant, sharded=sharded,
+                        max_chunk_elems=max_chunk_elems,
+                        pipeline_chunks=pipeline_chunks,
+                        sync_every=sync_every)
+        for k in total:
+            total[k] += st[k]
+        labels.append(f"{cfg.name}/rs" if sharded else cfg.name)
+    return total, tuple(labels)
+
+
+def observed_link_stats(ex: PartitionedExchange, *, n_intra: int,
+                        n_inter: int, sync_every: int = 1
+                        ) -> Tuple[Dict[str, float],
+                                   Tuple[Dict[str, Any], ...]]:
+    """Per-link accounting of an engine as built (the sibling of
+    :func:`policy_link_stats`, which re-derives the groups from a policy):
+    (summed totals, one row per group with its label, size and
+    :func:`link_stats`). The reference's optional runtime ``stats``
+    columns belong to the bit schedule, which is not ported."""
+    two_level = ex.two_level
+    total, rows = _zero_links(), []
+    for eng, g in zip(ex.engines, ex.layout.groups):
+        st = link_stats(eng.qz, g.size, n_intra=n_intra, n_inter=n_inter,
+                        two_level=two_level,
+                        server_requant=eng.server_requant,
+                        max_chunk_elems=eng.max_chunk_elems,
+                        pipeline_chunks=eng.pipeline_chunks,
+                        sync_every=sync_every)
+        rows.append({"label": g.cfg.name, "size": g.size, "rule_id": None,
+                     **st})
+        for k in total:
+            total[k] += st[k]
+    return total, tuple(rows)
 
 
 def per_leaf_stats(qz: Quantizer, sizes: Sequence[int], n_workers: int, *,

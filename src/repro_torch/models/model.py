@@ -87,6 +87,13 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def _map_with(fn, paths, tree):
+    """``fn(path, leaf)`` over a dict tree and its aligned path tree."""
+    if isinstance(tree, dict):
+        return {k: _map_with(fn, paths[k], v) for k, v in tree.items()}
+    return fn(paths, tree)
+
+
 class LM:
     """Decoder-only language model (dense GQA stacks)."""
 
@@ -156,40 +163,61 @@ class LM:
     def _cast_tree(self, tree):
         return map_tree(self._cast, tree)
 
-    def _head(self, params) -> torch.Tensor:
+    def _gather_leaf(self, path, leaf, salt, gather):
+        if gather is None:
+            return self._cast(leaf)
+        return self._cast(gather(path, leaf, salt))
+
+    def _head(self, params, gather=None) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return self._cast(params["embed"]).T
-        return self._cast(params["lm_head"])
+            return self._gather_leaf("embed", params["embed"], 0, gather).T
+        return self._gather_leaf("lm_head", params["lm_head"], 0, gather)
 
     # ------------------------------------------------------------------
     # training forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params, tokens: torch.Tensor):
+    def hidden_states(self, params, tokens: torch.Tensor, gather=None):
         """tokens (B, S) -> (final-normed hidden states (B, S, D) bf16,
-        aux loss). Each group's stacked layers run in order."""
+        aux loss). Each group's stacked layers run in order.
+
+        ``gather(path, leaf, salt) -> full leaf`` (the reference's gather
+        hook, e.g. the per-leaf fsdp all-gather) is called on each leaf at
+        its point of use: ``embed`` and ``final_norm`` whole with salt 0,
+        a stacked layer leaf one repeat's slice at a time with the repeat
+        index as its salt, under the paths of :meth:`param_paths`."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        paths = self.param_paths(params) if gather is not None else None
+        x = self._embed(params, tokens, gather)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g, gp in zip(self.groups, params["groups"]):
+        for gi, (g, gp) in enumerate(zip(self.groups, params["groups"])):
             for r in range(g.repeats):
                 for j, spec in enumerate(g.unit):
-                    pj = map_tree(lambda t: self._cast(t[r]), gp[f"pos{j}"])
+                    unit = gp[f"pos{j}"]
+                    if gather is None:
+                        pj = map_tree(lambda t: self._cast(t[r]), unit)
+                    else:
+                        pj = _map_with(
+                            lambda p, t: self._gather_leaf(p, t[r], r,
+                                                           gather),
+                            paths["groups"][gi][f"pos{j}"], unit)
                     x, a = apply_layer_train(cfg, spec, pj, x)
                     aux = aux + a
-        return self._final_norm(self._cast(params["final_norm"]), x), aux
+        fp = self._gather_leaf("final_norm", params["final_norm"], 0, gather)
+        return self._final_norm(fp, x), aux
 
-    def logits(self, params, tokens: torch.Tensor):
-        x, aux = self.hidden_states(params, tokens)
-        lg = (x @ self._head(params)).to(torch.float32)
+    def logits(self, params, tokens: torch.Tensor, gather=None):
+        x, aux = self.hidden_states(params, tokens, gather)
+        lg = (x @ self._head(params, gather)).to(torch.float32)
         return softcap(lg, self.cfg.final_softcap), aux
 
-    def loss(self, params, batch, *, loss_chunk: int = 512):
+    def loss(self, params, batch, gather=None, *, loss_chunk: int = 512):
         """batch: {tokens (B, S)}. Next-token cross entropy, computed in
         sequence chunks so (B, S, V) logits never exist at once. Returns
-        (loss, {"nll", "aux", "tokens"}) like the reference."""
+        (loss, {"nll", "aux", "tokens"}) like the reference. ``gather`` as
+        in :meth:`hidden_states` (the head too, salt 0)."""
         tokens = batch["tokens"].long()
-        x, aux = self.hidden_states(params, tokens)
-        head = self._head(params)
+        x, aux = self.hidden_states(params, tokens, gather)
+        head = self._head(params, gather)
         inputs, targets = x[:, :-1], tokens[:, 1:]
         T = inputs.shape[1]
         ck = min(loss_chunk, T)
@@ -224,8 +252,10 @@ class LM:
             caches.append(gc)
         return tuple(caches)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = self._cast(params["embed"])[tokens.long()]
+    def _embed(self, params, tokens: torch.Tensor,
+               gather=None) -> torch.Tensor:
+        x = self._gather_leaf("embed", params["embed"], 0, gather)[
+            tokens.long()]
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x

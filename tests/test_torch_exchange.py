@@ -352,15 +352,18 @@ def test_chunk_spans_match_reference():
 
 
 def test_unported_schedules_raise():
-    """The two-level exchange is not ported; the pipelined one is (a K
-    below 1 is refused, as the reference refuses it)."""
+    """The pipelined and the two-level exchange are ported (a K below 1 is
+    refused, as the reference refuses it); an engine is two-level exactly
+    when it holds its pod's process group (``test_torch_hierarchical.py``
+    runs it)."""
     from repro_torch.core.api import make_quantizer
     qz = make_quantizer("orq-9")
     assert exchange.GradientExchange(qz, pipeline_chunks=2).pipeline_chunks \
         == 2
     with pytest.raises(ValueError, match="pipeline_chunks"):
         exchange.GradientExchange(qz, pipeline_chunks=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert not exchange.GradientExchange(qz).two_level
+    with pytest.raises(TypeError, match="intra_axes"):
         exchange.GradientExchange(qz, intra_axes=("data",))
 
 

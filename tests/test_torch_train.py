@@ -271,10 +271,14 @@ def test_step_draws_on_params_device(world1, ref_runs, monkeypatch):
 
 
 def test_train_config_refuses_unported(world1):
+    # fsdp and the two-level hierarchy are ported
+    # (test_torch_fsdp_train.py, test_torch_hierarchical.py); the async
+    # hierarchy and its window are not
+    assert TrainConfig(mode="fsdp", hierarchy="two_level").mode == "fsdp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(mode="fsdp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(hierarchy="two_level")
+        TrainConfig(hierarchy="two_level_async")
+    with pytest.raises(ValueError, match="mode"):
+        TrainConfig(mode="zero2")
     with pytest.raises(TypeError):
         TrainConfig(local_steps=4)
     # the pipelined schedule is ported; a K below 1 is refused, as the
@@ -320,21 +324,46 @@ def test_cli_runs_on_cpu(tmp_path):
     assert m["wire_bytes_per_worker"] > 0 and m["world_size"] == 1
 
 
-@pytest.mark.parametrize("flags", [["--mode", "fsdp"],
-                                   ["--hierarchy", "two_level"],
-                                   ["--bit-schedule", "default=orq@5..3"],
-                                   ["--resume", "x"],
-                                   ["--pods", "2"]])
+@pytest.mark.parametrize("flags", [["--bit-schedule", "default=orq@5..3"],
+                                   ["--hierarchy", "two_level_async"],
+                                   ["--local-steps", "4"],
+                                   ["--model-parallel", "2"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     """Refused while parsing, before any process group or model exists.
     (Every ``--quant`` scheme trains now; see
     ``test_torch_train_schemes.py``; ``--pipeline-chunks`` and
-    ``--per-leaf-exchange`` run: ``test_torch_train_local.py``.)"""
+    ``--per-leaf-exchange`` run: ``test_torch_train_local.py``; the flags
+    ported since run in ``test_cli_runs_ported_flags``.)"""
     from repro_torch.launch import train as launcher
     with pytest.raises(SystemExit) as e:
         launcher.train(["--smoke", "--device", "cpu", *flags])
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--mode", "fsdp"],
+                                   ["--hierarchy", "two_level"],
+                                   ["--resume", "CKPT"],
+                                   ["--pods", "2"]])
+def test_cli_runs_ported_flags(flags, tmp_path):
+    """The flags that were refused before fsdp, the two-level hierarchy
+    and checkpoints were ported: each runs two smoke steps on the CPU
+    (``--pods 2`` on two gloo workers, ``--resume`` from a one-step state
+    checkpoint)."""
+    n = 2 if "--pods" in flags else 1
+    common = ["--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
+              "--quant", "orq-9", "--bucket", "512", "--log-every", "1"]
+    if "--resume" in flags:
+        ck = str(tmp_path / "state")
+        rcs, out = _world(tmp_path / "first", 1, "repro_torch.launch.train",
+                          *common, "--steps", "1", "--state-checkpoint", ck)
+        assert rcs == [0], out
+        flags = ["--resume", ck]
+    rcs, out = _world(tmp_path, n, "repro_torch.launch.train", *common,
+                      "--steps", "2", *flags)
+    assert rcs == [0] * n, out
+    assert any(ln.startswith("params sha256 ") for ln in out.splitlines())
+    assert f"replicas in sync: True ({n} workers)" in out
 
 
 _WORKER = """
@@ -356,6 +385,7 @@ def _world(tmp_path, n, module, *args):
     own ``file://`` rendezvous; returns (exit codes, rank 0's output)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
+    tmp_path.mkdir(parents=True, exist_ok=True)
     rdv = str(tmp_path / "rendezvous")
     logs = [tmp_path / f"rank{r}.log" for r in range(n)]
     procs = []
