@@ -74,7 +74,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (torch.profiler), beside their unprofiled wall. Then BinGrad-b
             the same way (encode_bingrad_fused 12, mean 5, each 5, qdq 2;
             34,878,624 wire bytes; its params sha256 printed beside PR
-            16's), and one step of each other scheme
+            20's), and one step of each other scheme
             (bingrad-pb, terngrad, qsgd-5, linear-5, minmax2, signsgd;
             encode 2, mean 1, each 1; the reference's wire bytes).
 8. exchange the smoke-size fused exchange of a buffer of multiples of 1/64
@@ -98,10 +98,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             BinGrad-b, one step then one with error feedback: 48
             collective launches a step, 140,043,800 / 34,878,832 wire
             bytes, 24 encodes, 12 decodes of each kind and 12 qdq a step.
-            Then the per-leaf exchange and its EF residuals of five leaves
-            of the full-width gradient (final_norm, wq, the FFN's wo,
-            norm1, norm2) on the 1/64 grid, card (NCCL) against CPU
-            (gloo).
+            Then the per-leaf exchange and its EF residuals of four leaves
+            of the full-width gradient (final_norm, wq, norm1, norm2) on
+            the 1/64 grid, card (NCCL) against CPU (gloo).
 12. theory  ``scheme_mse`` of the full-width gradient for every scheme,
             timed on the card; its first 1024 buckets on the card and on
             the CPU within THEORY_RTOL.
@@ -135,7 +134,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             run's sha256 (encode 3, mean 3); one per-leaf fsdp step: 222
             launches, 111 encodes and 111 mean decodes. After phase 11's
             check: the fsdp exchange and its EF residuals of phase 11's
-            five full-width leaves on the 1/64 grid, card (NCCL) against
+            four full-width leaves on the 1/64 grid, card (NCCL) against
             CPU (gloo), bit-equal.
 16. checkpoint  ``--smoke`` fsdp orq-9 with error feedback: 4 steps
             writing the state after step 2, then ``--resume`` of it: the
@@ -143,6 +142,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             runs); the resumed run's ``--checkpoint`` file hashes to
             its params sha256. Then the save and load of a full-width params
             checkpoint (541 MB of float32), timed once.
+
+17. train_bit_schedule  ``--bit-schedule "norm|bias=fp,default=orq@5..1"
+            --resolve-every 1`` on full-width lm-100m with error feedback,
+            one step at each of 5, 4, 3, 2 and 1 wire bits (orq-17, orq-9,
+            orq-5, orq-3, minmax2, the EF residual carried across): per
+            step the assignment, the launches (encode 2, mean 1, each 1,
+            qdq 1), the wire bytes (the static policy's at that width) and
+            the step time; a frozen ``orq@4`` ends on the static
+            ``default=orq-9`` run's sha256, replicated and fsdp; then a
+            ``ScheduledTrainStep`` whose controller prices on the flat
+            4-worker link with the static orq-9 policy's bytes as its
+            budget: step 0 capped at 4 bits, the later decisions
+            statistics-driven, each within the budget.
+18. train_async  ``hierarchy="two_level_async"``, orq-9 with error
+            feedback, on a pod of one (``make_train_step(...,
+            pod_axis=True)``): H = 2 over 4 steps, inner steps with no
+            kernel and no wire collective, sync steps the flat EF step's
+            (and the anchor as params after them), the p50 of each kind;
+            H = 1 (``--local-steps 1``) and ``--hierarchy two_level``
+            through the launcher end on phase 7's flat EF sha256. After
+            phase 15's check: the sync step on five full-width leaves
+            (phase 11's and the FFN's wo) from a state on the grid, card
+            (NCCL) against CPU (gloo), bit-equal.
+    Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
+    training shape at 2 and 5 bits too (the schedule's widths).
 
 Then the kernels JSON line (all eleven kernels), the ``nvidia-smi``
 name/power line, and last
@@ -387,13 +411,17 @@ def check_encode(torch, dev):
             raise AssertionError(f"encode_fused {name}: {mism} words differ "
                                  f"from the plain version")
     # the training path's shape (both exchange phases encode one buffer):
-    # orq-9 at 4 bits, and the 1-bit (minmax2's levels) and 3-bit (orq-5)
-    # widths of the other random-round schemes
+    # orq-9 at 4 bits, the 1-bit (minmax2's levels) and 3-bit (orq-5)
+    # widths of the other random-round schemes, and the bit schedule's 2
+    # (orq-3) and 5 (orq-17) bits
     from repro_torch.core import levels as lvmod
     v, lv, rb, mask = _train_shape_inputs(torch, dev, g)
     widths = {"train_main_shape": (4, lv),
               "train_main_shape_bits1": (1, lvmod.minmax_levels(v, mask)),
-              "train_main_shape_bits3": (3, lvmod.orq_levels(v, mask, 2))}
+              "train_main_shape_bits3": (3, lvmod.orq_levels(v, mask, 2)),
+              # the bit schedule's widths: orq-3 and orq-17 (phase 17)
+              "train_main_shape_bits2": (2, lvmod.orq_levels(v, mask, 1)),
+              "train_main_shape_bits5": (5, lvmod.orq_levels(v, mask, 4))}
     for name, (bits, lv) in widths.items():
         args = (v, lv, rb, mask, None)
         kern = lambda: fe.encode_fused_cuda(*args, bits=bits)
@@ -534,7 +562,9 @@ TRAIN_NB, TRAIN_D = 66_058, 2048
 #: the decodes' timed shapes: tag -> (L, rows per worker, bits, levels)
 TRAIN_DECODE_SHAPES = {"bits4": (1, TRAIN_NB, 4, 9),
                        "bits1": (1, TRAIN_NB, 1, 2),
-                       "L4": (4, 16_515, 4, 9)}
+                       "L4": (4, 16_515, 4, 9),
+                       "bits2": (1, TRAIN_NB, 2, 3),
+                       "bits5": (1, TRAIN_NB, 5, 17)}
 
 
 def _train_shape_inputs(torch, dev, g):
@@ -564,8 +594,8 @@ def _mismatch(torch, got, want) -> int:
 def check_decode(torch, dev):
     """decode_fused_mean / _each against their plain versions (bit-equal by
     value) at L = 1, 3, 4, 4 bits, d 2048 with a ragged row, and at 1, 3
-    and 5 bits; then both timed at the training path's shape (L = 1) at 4
-    and 1 bits, and the per-worker decode at L = 4."""
+    and 5 bits; then both timed at the training path's shape (L = 1) at 4,
+    1, 2 and 5 bits (the last two the bit schedule's), and at L = 4."""
     from repro_torch.core import encode
     from repro_torch.kernels import fused_decode as fd
 
@@ -645,7 +675,8 @@ def check_decode(torch, dev):
 def check_qdq(torch, dev):
     """qdq_fused against its plain version (bit-equal by value) in modes
     rr, bin and sign, with and without a clip and a mask; then timed at
-    the training path's shape (rr, orq-9 levels, the exchange's mask)."""
+    the training path's shape (rr, the exchange's mask) with orq-9's
+    levels and with the bit schedule's orq-3 and orq-17."""
     from repro_torch.kernels import fused_encode as fe
 
     g = torch.Generator(device="cpu").manual_seed(4)
@@ -675,27 +706,38 @@ def check_qdq(torch, dev):
         if mism:
             raise AssertionError(f"qdq_fused {name}: {mism} values differ "
                                  f"from the plain version")
+    from repro_torch.core import levels as lvmod
     v, lv, rb, mask = _train_shape_inputs(torch, dev, g)
-    args = (v, lv, rb, mask, None)
-    kern = lambda: fe.qdq_fused_cuda(*args, mode="rr")
-    pl = lambda: fe.qdq_fused_plain(*args, mode="rr")
-    got = kern()
-    mism = _mismatch(torch, got, pl())
-    ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(pl, reps=2,
-                                                              rounds=3)
-    moved = nbytes(v, lv, rb, mask, got)
-    b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * 9 + 8)))
-    dev_ms, plain_dev_ms = device_ms(
-        kern, floor_ms=hbm_floor_ms(moved)), device_ms(pl, calls=2)
-    res = dict(shape=[TRAIN_NB, TRAIN_D], s=9, mode="rr", mismatched=mism,
-               max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-               device_ms=dev_ms, plain_device_ms=plain_dev_ms, bytes=moved,
-               bound_ms=b_ms, bound_by=b_by)
-    emit("kernel", kernel="qdq_fused", case="train_main_shape", **res)
-    if mism:
-        raise AssertionError(f"qdq_fused at the training shape: {mism} "
-                             f"values differ from the plain version")
-    return res
+    # orq-9's levels, and the bit schedule's orq-3 and orq-17 (phase 17)
+    widths = {"train_main_shape": lv,
+              "train_main_shape_bits2": lvmod.orq_levels(v, mask, 1),
+              "train_main_shape_bits5": lvmod.orq_levels(v, mask, 4)}
+    out = {}
+    for case, lv in widths.items():
+        args = (v, lv, rb, mask, None)
+        kern = lambda: fe.qdq_fused_cuda(*args, mode="rr")
+        pl = lambda: fe.qdq_fused_plain(*args, mode="rr")
+        got = kern()
+        mism = _mismatch(torch, got, pl())
+        ms, plain_ms = time_ms(kern, reps=10, rounds=3), time_ms(
+            pl, reps=2, rounds=3)
+        moved = nbytes(v, lv, rb, mask, got)
+        s = lv.shape[1]
+        b_ms, b_by = bound(moved, float(TRAIN_NB * TRAIN_D * (2 * s + 8)))
+        dev_ms, plain_dev_ms = device_ms(
+            kern, floor_ms=hbm_floor_ms(moved)), device_ms(pl, calls=2)
+        out[case] = dict(
+            shape=[TRAIN_NB, TRAIN_D], s=s, mode="rr", mismatched=mism,
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+            device_ms=dev_ms, plain_device_ms=plain_dev_ms, bytes=moved,
+            bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="qdq_fused", case=case, **out[case])
+        if mism:
+            raise AssertionError(f"qdq_fused at the training shape ({case}):"
+                                 f" {mism} values differ from the plain "
+                                 f"version")
+        del got
+    return out
 
 
 LEVEL_RTOL = 1e-5     # BinGrad-b levels: row sums in another order
@@ -1158,14 +1200,16 @@ def run_train_path(torch):
     return launches, runs["orq9_ef"]["state"], sha
 
 
-#: BinGrad-b's params sha256 after the runs of ``run_bingrad_train`` as PR
-#: 16's chip runs printed them (NVIDIA H100 80GB HBM3, the same in PRs
-#: 13-16): the encode's levels keep their bits while its kernel changes
-BIN_SHA256_PR16 = {
+#: BinGrad-b's params sha256 after the runs of ``run_bingrad_train`` as
+#: PR 20's chip runs printed them (NVIDIA H100 80GB HBM3): the encode's
+#: levels keep their bits while its kernel changes. PRs 13-19 printed
+#: 0a8e2c8f... and adf8ebd3...; PR 20 rounds the SGD step as XLA's FMA
+#: contraction does (``optimizers.step``), which moves every digest once.
+BIN_SHA256_PR20 = {
     "bingrad_b":
-        "0a8e2c8f4f8ce17058559ee802448f2c181b314fc89d0621225eb4f58246ea30",
+        "fb2eb4b44e8bf8f9ea560c6594201de7b5d76fc7f08f3f1df7bee9c0be852177",
     "bingrad_b_ef":
-        "adf8ebd387d87f2fb434313c8edec9b0d7eb34a2db1c8c83ba275ec8145905e3"}
+        "75e76893e052a262e0a1eebb0f0218942511a2564ad56824cf7286a6a8da9007"}
 
 
 def run_bingrad_train(torch):
@@ -1177,9 +1221,9 @@ def run_bingrad_train(torch):
         (("bingrad_b", ["--steps", "3"]),
          ("bingrad_b_ef", ["--steps", "2", "--error-feedback"])),
         BIN_EXPECT, wire_bytes_formula(2))
-    sha = {k: runs[k]["params_sha256"] for k in BIN_SHA256_PR16}
+    sha = {k: runs[k]["params_sha256"] for k in BIN_SHA256_PR20}
     emit("train", run="bingrad-b params sha256", sha256=sha,
-         pr16=BIN_SHA256_PR16, equal_pr16=sha == BIN_SHA256_PR16)
+         pr20=BIN_SHA256_PR20, equal_pr20=sha == BIN_SHA256_PR20)
     return launches, runs["bingrad_b_ef"]["state"], sha
 
 
@@ -1808,7 +1852,9 @@ def _subtree(tree, ffn_wo=False):
 
 def check_per_leaf_card_vs_cpu(torch, dev, grads):
     """The per-leaf exchange and its EF residuals (``LeafExchange``) of
-    five leaves of the full-width gradient, each put on the grid of
+    four leaves of the full-width gradient (final_norm, wq, norm1, norm2:
+    7.1 M values; the FFN's wo, phase 18's fifth, left out since PR 20 to
+    keep the script within its time), each put on the grid of
     multiples of 1/64 of its max |g| (so every fit's sums are exact in any
     order), on the card (NCCL) and on the CPU (a gloo group of the same
     world): bit-equal for orq-9; for BinGrad-b the means within 2^-20 of
@@ -1823,8 +1869,8 @@ def check_per_leaf_card_vs_cpu(torch, dev, grads):
     from repro_torch.models import LM
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
-    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads), True)
-    sub = _on_grid(torch, _subtree(grads, True))
+    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads))
+    sub = _on_grid(torch, _subtree(grads))
     gloo = dist.new_group(ranks=[0], backend="gloo")
     failed = []
     for scheme in ("orq-9", "bingrad-b"):
@@ -2361,9 +2407,10 @@ def run_fsdp_train(torch):
 
 def check_fsdp_card_vs_cpu(torch, dev, grads):
     """The fsdp exchange and its EF residuals
-    (``FsdpExchange.exchange_with_residuals``) of the five full-width
-    leaves of phase 11 (final_norm, wq, the FFN's wo, norm1, norm2: 26 M
-    values, sharded as lm-100m's plan shards them), on the 1/64 grid with
+    (``FsdpExchange.exchange_with_residuals``) of the four full-width
+    leaves of phase 11 (final_norm, wq, norm1, norm2: 7.1 M values,
+    sharded as lm-100m's plan shards them; the FFN's wo left out since PR
+    20 to keep the script within its time), on the 1/64 grid with
     EF buffers of multiples of 1/512, on the card (NCCL) and on the CPU (a
     gloo group of the same world), orq-9 and BinGrad-b: bit-equal."""
     import torch.distributed as dist
@@ -2379,15 +2426,15 @@ def check_fsdp_card_vs_cpu(torch, dev, grads):
     ap = model.abstract_params()
     plan = plan_sharding_shapes(model, ap, dp_axes=("data",),
                                 axis_sizes={"data": 1})
-    sub = _on_grid(torch, _subtree(grads, True))
+    sub = _on_grid(torch, _subtree(grads))
     gloo = dist.new_group(ranks=[0], backend="gloo")
     failed = []
     for scheme in ("orq-9", "bingrad-b"):
         out = {}
         for where, group in ((dev, None), ("cpu", gloo)):
             fex = FsdpExchange.build(
-                QuantPolicy.parse(scheme), _subtree(ap, True), ("data",),
-                paths=_subtree(plan.paths, True),
+                QuantPolicy.parse(scheme), _subtree(ap), ("data",),
+                paths=_subtree(plan.paths),
                 shard_dims=plan.full_shard_dims(), n_shards=1, group=group)
             bufs = [b.to(where) for b in fex.layout.flatten_groups(sub)]
             g = torch.Generator().manual_seed(16)
@@ -2474,6 +2521,326 @@ def run_checkpoint(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the adaptive bit schedule
+# ---------------------------------------------------------------------------
+
+SCHED_ARGS = ["--arch", "lm-100m", "--bucket", "2048", "--batch", "8",
+              "--seq", "128", "--seed", "0", "--log-every", "1",
+              "--error-feedback"]
+#: the ramp of phase 17: one step at each of 5, 4, 3, 2 and 1 wire bits
+RAMP = "norm|bias=fp,default=orq@5..1"
+RAMP_SCHEMES = {5: "orq-17", 4: "orq-9", 3: "orq-5", 2: "orq-3",
+                1: "minmax2"}
+#: an EF step of one quantized group (and the fp norms): both exchange
+#: phases encode once and decode once, the residual is one qdq
+STEP_EXPECT = {"encode_fused": 2, "decode_fused_mean": 1,
+               "decode_fused_each": 1, "qdq_fused": 1}
+
+
+def _path_sizes(model):
+    from repro_torch.utils.pytree import tree_leaves
+    ap = model.abstract_params()
+    return [(p, int(t.numel())) for p, t in zip(
+        tree_leaves(model.param_paths(ap)), tree_leaves(ap))]
+
+
+def run_bit_schedule_train(torch, dev):
+    """Phase 17: ``--bit-schedule`` through the launcher on full-width
+    lm-100m, the NCCL world of one, error feedback. The ramp orq@5..1
+    resolved every step (orq-17, orq-9, orq-5, orq-3, minmax2): each step's
+    assignment, launch counts (zeroed before the step, read after it), wire
+    bytes (the static policy's accounting at that width) and time. A
+    frozen ``orq@4`` ends on the static ``default=orq-9`` run's sha256,
+    replicated and fsdp. Then the controller with a DCN budget: the
+    ScheduledTrainStep priced on the reference benchmark's flat 4-worker
+    link (``policy_link_stats``, as ``benchmarks/convergence.py``), the
+    budget the static orq-9 policy's own priced bytes: the decisions
+    after the first are statistics-driven, each within the budget.
+    -> launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.exchange import (policy_link_stats,
+                                                policy_stats)
+    from repro_torch.core.policy import (BitBudgetController, BitSchedule,
+                                         QuantPolicy)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state
+    from repro_torch.train.step import ScheduledTrainStep
+
+    model = LM(get_config("lm-100m"))
+    ps = _path_sizes(model)
+    total = dict.fromkeys(_counters(), 0)
+    rows = []
+
+    def on_step(i, state, metrics, step_fn):
+        torch.cuda.synchronize()
+        got = _read_counters()
+        bits = step_fn.last_assignment[-1]
+        want_bytes = policy_stats(QuantPolicy.parse(
+            f"norm|bias=fp,default={RAMP_SCHEMES[bits]}",
+            bucket_size=2048), ps, 1)[1]
+        rows.append(dict(step=i, bits=list(step_fn.last_assignment),
+                         scheme=RAMP_SCHEMES[bits], launches=got,
+                         wire_bytes=step_fn.launches_and_bytes(1)[1],
+                         static_wire_bytes=want_bytes,
+                         loss=float(metrics["loss"])))
+        for k, n in got.items():
+            total[k] += n
+        _zero_counters()
+
+    _zero_counters()
+    r = launcher.train(SCHED_ARGS + ["--bit-schedule", RAMP,
+                                     "--resolve-every", "1", "--steps", "5"],
+                       on_step=on_step)
+    for row, sec in zip(rows, r["step_s"]):
+        row["step_ms"] = sec * 1e3
+        emit("train_bit_schedule", run="ramp orq@5..1", **row)
+    bad = [row["step"] for row in rows
+           if row["launches"] != _expect(STEP_EXPECT)
+           or row["wire_bytes"] != row["static_wire_bytes"]
+           or not abs(row["loss"]) < float("inf")]
+    if ([row["bits"][-1] for row in rows] != [5, 4, 3, 2, 1] or bad
+            or not r["replicas_in_sync"]):
+        raise AssertionError(f"the ramp's steps {bad} (or its bits) are off")
+
+    # a frozen schedule is the static policy, replicated and fsdp
+    frozen = {}
+    _zero_counters()
+    for mode in ("replicated", "fsdp"):
+        m = ["--mode", mode, "--steps", "2"]
+        st = launcher.train(SCHED_ARGS + m + ["--quant",
+                                              "norm|bias=fp,default=orq-9"])
+        fr = launcher.train(SCHED_ARGS + m + ["--bit-schedule",
+                                              "norm|bias=fp,default=orq@4"])
+        frozen[mode] = (st["params_sha256"], fr["params_sha256"])
+        emit("train_bit_schedule", run=f"frozen orq@4, {mode}",
+             static_sha256=st["params_sha256"],
+             frozen_sha256=fr["params_sha256"],
+             equal=st["params_sha256"] == fr["params_sha256"],
+             bits=[h["bits"] for h in fr["history"]])
+    for k, n in _read_counters().items():
+        total[k] += n
+    if any(a != b for a, b in frozen.values()):
+        raise AssertionError(f"a frozen schedule left the static run: "
+                             f"{frozen}")
+
+    # the water-filling solve under a budget, statistics-driven
+    sched = BitSchedule.parse(RAMP, bucket_size=2048)
+
+    def priced(policy):
+        return policy_link_stats(policy, ps, n_intra=1, n_inter=4,
+                                 two_level=False)[0]["dcn_q_bytes"]
+
+    budget = priced(QuantPolicy.parse("norm|bias=fp,default=orq-9",
+                                      bucket_size=2048))
+    ctl = BitBudgetController(sched, 5, resolve_every=1,
+                              dcn_budget_bytes=budget, cost_fn=priced)
+    step_fn = ScheduledTrainStep(
+        model, TrainConfig(error_feedback=True, collect_stats=True), ctl,
+        constant_lr(0.05))
+    state = init_state(model, step_fn.init_config, device=dev, step=step_fn)
+    data = SyntheticLM(model.cfg.vocab_size, 128, 8, seed=0)
+    key = prng.key(0, device=dev)
+    _zero_counters()
+    for i in range(5):
+        state, m = step_fn(state, data.batch(i, device=dev), key)
+    for k, n in _read_counters().items():
+        total[k] += n
+    emit("train_bit_schedule", run="budget = static orq-9's priced bytes "
+         "(flat 4-worker link)", budget=budget, decisions=ctl.decisions,
+         last_stats=step_fn.entry_stats(m["exchange_stats"]))
+    del state
+    d = ctl.decisions
+    if (len(d) != 5 or not all(x["stats_driven"] for x in d[1:])
+            or any(x["est_dcn_bytes"] > budget for x in d)
+            or d[0]["bits"] != [None, 4]):
+        raise AssertionError(f"the budgeted decisions are off: {d}")
+    emit("train_bit_schedule", what="launches over the phase", **total)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the temporal hierarchy
+# ---------------------------------------------------------------------------
+
+class _WireCount:
+    """Counts the wire collectives (``all_to_all_single``, the all-gathers)
+    every ``torch.distributed`` call of the port makes while active."""
+
+    NAMES = ("all_to_all_single", "all_gather_into_tensor", "all_gather")
+
+    def __init__(self, dist):
+        self.dist, self.n, self.real = dist, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real = self.real[name] = getattr(self.dist, name)
+
+            def counted(*a, _real=real, **kw):
+                self.n += 1
+                return _real(*a, **kw)
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.dist, name, real)
+
+
+def run_async_train(torch, dev, dist, flat_sha):
+    """Phase 18: ``two_level_async`` on full-width lm-100m, orq-9, EF, a
+    pod of one (``pod_axis=True``: the NCCL world of one, its outer
+    exchange flat). H = 2 over 4 steps through ``make_train_step``: inner
+    steps launch no kernel and no wire collective, sync steps what the
+    flat EF step does (encode 2, mean 1, each 1, qdq 1; 2 all_to_all + 2
+    all_gather), and after each sync the params are the anchor; the p50 of
+    each kind. H = 1 through the launcher ends on phase 7's flat EF
+    sha256, as ``--hierarchy two_level`` does. -> launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import step_decay
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train.step import AsyncTrainStep
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = LM(get_config("lm-100m"))
+    tcfg = TrainConfig(policy=QuantPolicy.parse("orq-9", bucket_size=2048),
+                       hierarchy="two_level_async", local_steps=2,
+                       error_feedback=True)
+    fn = make_train_step(model, tcfg, step_decay(0.05, [2, 3]),
+                         pod_axis=True)
+    if not isinstance(fn, AsyncTrainStep) or fn.layout.two_level:
+        raise AssertionError("a pod of one should give the flat async step")
+    state = init_state(model, tcfg, device=dev, step=fn)
+    data = SyntheticLM(model.cfg.vocab_size, 128, 8, seed=0)
+    key = prng.key(0, device=dev)
+    total = dict.fromkeys(_counters(), 0)
+    times = {True: [], False: []}
+    bad = []
+    for i in range(4):
+        batch = data.batch(i, device=dev)
+        sync = fn.is_sync_step(state.step)
+        _zero_counters()
+        torch.cuda.synchronize()
+        with _WireCount(dist) as wire:
+            t0 = time.perf_counter()
+            state, m = fn(state, batch, key)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        got = _read_counters()
+        for k, n in got.items():
+            total[k] += n
+        times[sync].append(sec)
+        at_anchor = all(torch.equal(a, p) for a, p in zip(
+            tree_leaves(state.outer.anchor), tree_leaves(state.params)))
+        want = _expect(STEP_EXPECT if sync else {})
+        emit("train_async", step=i, sync=sync, launches=got,
+             wire_collectives=wire.n, params_are_anchor=at_anchor,
+             loss=float(m["loss"]), step_ms=sec * 1e3)
+        if (got != want or wire.n != (4 if sync else 0)
+                or at_anchor != sync or not abs(float(m["loss"])) < 1e30):
+            bad.append(i)
+    del state
+    p50 = {("sync" if k else "inner"): statistics.median(v) * 1e3
+           for k, v in times.items()}
+    links = fn.link_bytes()
+    emit("train_async", run="H = 2, 4 steps", step_p50_ms=p50,
+         link_bytes_per_step=links,
+         launches_and_bytes=list(fn.launches_and_bytes(1)))
+    if bad:
+        raise AssertionError(f"async steps {bad} launched or synced wrongly")
+
+    shas = {}
+    _zero_counters()
+    for name, extra in (("two_level_async H=1",
+                         ["--hierarchy", "two_level_async",
+                          "--local-steps", "1"]),
+                        ("two_level", ["--hierarchy", "two_level"])):
+        r = launcher.train(TRAIN_ARGS + ["--steps", "2", "--error-feedback",
+                                         *extra])
+        shas[name] = r["params_sha256"]
+    for k, n in _read_counters().items():
+        total[k] += n
+    emit("train_async", run="H = 1 and two_level on one card, 2 EF steps",
+         sha256=shas, flat_sha256=flat_sha,
+         equal=set(shas.values()) == {flat_sha})
+    if set(shas.values()) != {flat_sha}:
+        raise AssertionError("H = 1 / two_level left the flat run")
+    emit("train_async", what="launches over the phase", **total)
+    return total
+
+
+def check_async_card_vs_cpu(torch, dev, grads):
+    """The sync step of ``two_level_async`` (the inner update, the outer
+    exchange of the window's delta with its EF residual, the Nesterov
+    outer step) on five full-width leaves, phase 11's four and the FFN's
+    wo (a model whose gradient is those leaves on the 1/64 grid), from a
+    state on the grid (lr 1, momentum 0.5: the delta stays on the grid),
+    on the card (NCCL) and on the CPU (a gloo group of the same world):
+    params, optimizer state, EF, anchor and outer momentum bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.state import OuterState, TrainState
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_config("lm-100m")
+    paths = _subtree(LM(cfg).param_paths(grads), True)
+    G = _on_grid(torch, _subtree(grads, True))
+    g = torch.Generator().manual_seed(21)
+
+    def grid(k, den):
+        return tree_map(lambda t: (torch.randint(
+            -k, k + 1, tuple(t.shape), generator=g).float() / den), G)
+
+    start = dict(params=grid(16, 64), opt=grid(16, 32),
+                 anchor=grid(16, 64), mom=grid(16, 64))
+    tcfg = TrainConfig(policy=QuantPolicy.parse("orq-9", bucket_size=2048),
+                       hierarchy="two_level_async", local_steps=2,
+                       error_feedback=True, momentum=0.5)
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    out = {}
+    for where, group in ((dev, None), ("cpu", gloo)):
+        model = _FixedGradient(tree_map(lambda t: t.to(where), G), paths)
+        model.cfg = cfg
+        fn = make_train_step(model, tcfg, constant_lr(1.0), group=group,
+                             pod_axis=True)
+        n_ef = [n for n in fn.exchange.ef_shard_sizes(1)]
+        ef = tuple(None if n is None else (torch.randint(
+            -8, 9, (n,), generator=torch.Generator().manual_seed(22)
+        ).float() / 64).to(where) for n in n_ef)
+        on = {k: tree_map(lambda t: t.to(where), v) for k, v in start.items()}
+        state = TrainState(params=on["params"], opt=on["opt"], step=1, ef=ef,
+                           outer=OuterState(anchor=on["anchor"],
+                                            mom=on["mom"]))
+        if not fn.is_sync_step(state.step):
+            raise AssertionError("step 1 of a window of 2 is a sync step")
+        new, _ = fn(state, None, prng.key(23, device=where))
+        out[str(where)] = [t.cpu() for t in tree_leaves(
+            (new.params, new.opt, new.ef, new.outer))]
+    dist.destroy_process_group(gloo)
+    mism = [_mismatch(torch, a, b) for a, b in zip(out[str(dev)],
+                                                   out["cpu"])]
+    emit("train_async", what="sync step (outer exchange + EF + Nesterov) "
+         "of full-width leaves on the 1/64 grid, card (NCCL) vs CPU (gloo)",
+         n=sum(t.numel() for t in out["cpu"]), mismatched=sum(mism))
+    if any(mism):
+        raise AssertionError("card and CPU async sync steps differ")
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -2505,6 +2872,14 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Wall seconds since the previous lap, kept for the done line."""
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     report = build.build_all()
@@ -2513,6 +2888,7 @@ def main() -> int:
                          "ptxas": [ln.strip() for ln in v["ptxas"].splitlines()
                                    if "registers" in ln or "spill" in ln]}
                      for k, v in report.items()})
+    lap("build")
 
     enc = check_encode(torch, dev)
     att = check_attend(torch, dev)
@@ -2522,6 +2898,7 @@ def main() -> int:
     mpk = check_multipass_kernels(torch, dev)
     check_schedule_shapes(torch, dev)
     fsdp_times = check_fsdp_shapes(torch, dev)
+    lap("kernels")
     serve_launches, eng = run_main_path(torch)
     check_against_cpu(torch, dev)
     profile_decode(torch, eng)
@@ -2530,6 +2907,7 @@ def main() -> int:
     check_against_cpu(torch, dev, "bingrad-b")
     profile_decode(torch, eng)
     del eng
+    lap("serve")
     dist = start_world(torch)
     try:
         train_launches, state, k1_sha = run_train_path(torch)
@@ -2539,25 +2917,40 @@ def main() -> int:
         profile_train(torch, state, "bingrad-b")
         del state
         other_launches = run_other_schemes(torch)
+        lap("train")
         check_exchange_card_vs_cpu(torch, dev)
+        lap("exchange")
         pipe_launches = run_pipelined_train(torch, {**k1_sha, **bin_sha})
         leaf_launches = run_per_leaf_train(torch)
+        lap("train_pipelined_per_leaf")
         fsdp_launches, state = run_fsdp_train(torch)
         profile_train(torch, state, "orq-9", mode="fsdp")
         del state
+        lap("train_fsdp")
         ckpt_launches = run_checkpoint(torch)
+        lap("checkpoint")
+        sched_launches = run_bit_schedule_train(torch, dev)
+        lap("train_bit_schedule")
+        async_launches = run_async_train(torch, dev, dist, k1_sha["orq9_ef"])
+        lap("train_async")
         grads_loss = full_width_grads(torch, dev)
         check_per_leaf_card_vs_cpu(torch, dev, grads_loss[0])
         check_fsdp_card_vs_cpu(torch, dev, grads_loss[0])
+        check_async_card_vs_cpu(torch, dev, grads_loss[0])
+        lap("card_vs_cpu_leaves")
         mp_launches = run_multipass_path(torch, dev, grads_loss)
+        lap("multipass")
         check_theory(torch, grads_loss[0])
+        lap("theory")
         _all_zero(torch, "train_local card vs CPU",
                   lambda: check_local_card_vs_cpu(torch, dev, grads_loss[0]))
         del grads_loss
     finally:
         dist.destroy_process_group()
     run_local_train(torch, dev)
+    lap("train_local")
     run_dense_serve(torch)
+    lap("serve_dense")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -2568,7 +2961,9 @@ def main() -> int:
              "train_pipelined": pipe_launches,
              "train_per_leaf": leaf_launches,
              "train_fsdp": fsdp_launches,
-             "checkpoint": ckpt_launches}
+             "checkpoint": ckpt_launches,
+             "train_bit_schedule": sched_launches,
+             "train_async": async_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")
@@ -2598,6 +2993,8 @@ def main() -> int:
             train_shape=shape_of(enc["train_main_shape"]),
             train_shape_bits1=shape_of(enc["train_main_shape_bits1"]),
             train_shape_bits3=shape_of(enc["train_main_shape_bits3"]),
+            train_shape_bits2=shape_of(enc["train_main_shape_bits2"]),
+            train_shape_bits5=shape_of(enc["train_main_shape_bits5"]),
             **fsdp("encode_fused")),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
             "src/repro/kernels/fused_kv.py:70", a,
@@ -2605,18 +3002,25 @@ def main() -> int:
             serve_positions=shape_of(att["serve_positions"]),
             hd16=shape_of(att["hd16"]), hd256=shape_of(att["hd256"])),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
-            "src/repro/kernels/fused_encode.py:283", qdq,
+            "src/repro/kernels/fused_encode.py:283",
+            qdq["train_main_shape"],
+            train_shape_bits2=shape_of(qdq["train_main_shape_bits2"]),
+            train_shape_bits5=shape_of(qdq["train_main_shape_bits5"]),
             **fsdp("qdq_fused")),
         row("decode_fused_mean", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:84", dec["decode_fused_mean"],
             bits1=shape_of(dec["decode_fused_mean/bits1"]),
             L4=shape_of(dec["decode_fused_mean/L4"]),
+            bits2=shape_of(dec["decode_fused_mean/bits2"]),
+            bits5=shape_of(dec["decode_fused_mean/bits5"]),
             **fsdp("decode_fused_mean")),
         row("decode_fused_each", "src/repro_torch/csrc/decode_fused.cu",
             "src/repro/kernels/fused_decode.py:107",
             dec["decode_fused_each"],
             bits1=shape_of(dec["decode_fused_each/bits1"]),
             L4=shape_of(dec["decode_fused_each/L4"]),
+            bits2=shape_of(dec["decode_fused_each/bits2"]),
+            bits5=shape_of(dec["decode_fused_each/bits5"]),
             **fsdp("decode_fused_each")),
         row("encode_bingrad_fused", "src/repro_torch/csrc/encode_bingrad.cu",
             "src/repro/kernels/fused_bingrad.py:102",
@@ -2645,7 +3049,7 @@ def main() -> int:
             mpk["dequant_avg_L1"], L4=shape_of(mpk["dequant_avg_L4"]),
             note=mp_note),
     ]
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=laps)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

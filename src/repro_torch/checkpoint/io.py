@@ -5,9 +5,10 @@ the other's files.
 Leaves are written as a flat npz keyed by ``jax.tree_util.keystr``'s path
 strings: ``['key']`` for a dict entry, ``[i]`` for a tuple or list entry,
 ``.name`` for a NamedTuple field (a ``TrainState`` is ``.params[...]``,
-``.opt...``, ``.step``, ``.ef[...]``). ``None`` is an empty subtree. A
-Python int leaf (the step counter, AdamW's count) is an int32 scalar, as
-the reference's ``jnp.int32``.
+``.opt...``, ``.step``, ``.ef[...]`` and, in two_level_async mode,
+``.outer.anchor[...]`` / ``.outer.mom[...]``). ``None`` is an empty
+subtree. A Python int leaf (the step counter, AdamW's count) is an int32
+scalar, as the reference's ``jnp.int32``.
 
 Crash safety: both files are written to temporary paths and committed
 with ``os.replace``; the manifest is also embedded in the npz

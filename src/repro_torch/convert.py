@@ -40,15 +40,21 @@ def params_from_jax(tree, device=None):
 
 def state_from_jax(state, device=None):
     """A reference ``TrainState`` (params, SGD momentum, EF residuals as
-    a params-shaped tree, a tuple of group buffers or None, step), its
-    leaves fetched as numpy (e.g. ``jax.tree_util.tree_map(np.asarray,
-    state)`` or the state itself) -> the port's ``TrainState`` on
-    ``device``. The arrays are the global ones: on one worker they are
-    its fsdp shards too."""
-    from repro_torch.train.state import TrainState
+    a params-shaped tree, a tuple of group buffers or None, step, and the
+    two_level_async outer anchor and momentum or None), its leaves fetched
+    as numpy (e.g. ``jax.tree_util.tree_map(np.asarray, state)`` or the
+    state itself) -> the port's ``TrainState`` on ``device``. The arrays
+    are the global ones: on one worker they are its fsdp shards too (and
+    its async params and optimizer state keep their leading worker axis
+    of one: ``StateSharding.scatter`` takes the worker's row)."""
+    from repro_torch.train.state import OuterState, TrainState
 
+    outer = getattr(state, "outer", None)
     return TrainState(
         params=params_from_jax(state.params, device),
         opt=params_from_jax(state.opt, device),
         step=int(np.asarray(state.step)),
-        ef=None if state.ef is None else params_from_jax(state.ef, device))
+        ef=None if state.ef is None else params_from_jax(state.ef, device),
+        outer=None if outer is None else OuterState(
+            anchor=params_from_jax(outer.anchor, device),
+            mom=params_from_jax(outer.mom, device)))

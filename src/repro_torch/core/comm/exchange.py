@@ -11,9 +11,13 @@
                         fold) plus the matching fused ``local_qdq`` for
                         error-feedback residuals;
     PolicyLayout /      per-parameter-group policies: leaves grouped by
-    PartitionedExchange their resolved QuantConfig into contiguous
-                        segments, one fused exchange per group. A uniform
-                        policy is exactly one group with an unfolded key.
+    PartitionedExchange their resolved QuantConfig (or, ``by_rule``, by
+                        the policy rule that matched them: a bit
+                        schedule's skeleton, ``specialize``d per phase)
+                        into contiguous segments, one fused exchange per
+                        group; ``group_stats`` measures the buffers for
+                        the ``BitBudgetController``. A uniform policy is
+                        exactly one group with an unfolded key.
     LeafExchange        the per-leaf exchange: one quantized all-reduce
                         per parameter leaf under its policy-resolved
                         quantizer, keyed by the crc32 of its path;
@@ -315,11 +319,42 @@ class GradientExchange:
 
 @dataclasses.dataclass(frozen=True)
 class GroupSegment:
-    """One policy group's contiguous segment."""
+    """One policy group's contiguous segment. ``rule_id`` is the policy
+    rule index the group was formed from (``by_rule`` layouts only; None
+    for config-grouped ones): the bits-independent handle a
+    ``BitSchedule`` phase re-resolves the group's config through."""
 
     cfg: QuantConfig
     leaf_ids: Tuple[int, ...]    # canonical leaf order indices, ascending
     size: int                    # total element count of the group buffer
+    rule_id: Optional[int] = None
+
+
+def _with_configs(groups, policy: QuantPolicy):
+    """``groups`` of a ``by_rule`` layout with each config re-resolved
+    through its rule id under ``policy``."""
+    if any(g.rule_id is None for g in groups):
+        raise ValueError("with_configs needs a by_rule layout (group "
+                         "rule_ids are unset: build with "
+                         "from_tree(by_rule=True))")
+    return tuple(dataclasses.replace(g, cfg=policy.cfg_for_rule(g.rule_id))
+                 for g in groups)
+
+
+def _respecialized(engines, groups):
+    """``engines`` with each quantizer rebuilt from its group's config."""
+    return tuple(dataclasses.replace(eng, qz=g.cfg.to_quantizer(),
+                                     server_requant=g.cfg.server_requant)
+                 for eng, g in zip(engines, groups))
+
+
+def _stats_row(qz: Quantizer, buf: torch.Tensor, ef) -> torch.Tensor:
+    """``[sigma_sq, clip_frac, ef_norm_sq]`` of one group buffer."""
+    st = wire.encode_stats(qz, buf, wire.bucket_len(buf.shape[0],
+                                                     qz.bucket_size))
+    ef_sq = (torch.zeros((), dtype=torch.float32, device=buf.device)
+             if ef is None else ef.to(torch.float32).square().sum())
+    return torch.stack([st[0], st[1], ef_sq])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,11 +369,19 @@ class PolicyLayout:
     leaf_group: Tuple[int, ...]          # leaf i -> index into groups
 
     @classmethod
-    def from_tree(cls, tree, policy: QuantPolicy, *,
-                  paths=None) -> "PolicyLayout":
+    def from_tree(cls, tree, policy: QuantPolicy, *, paths=None,
+                  by_rule: bool = False) -> "PolicyLayout":
         """``paths`` optionally gives the leaf path strings the policy is
         resolved against (a tree aligned with ``tree``, e.g.
-        ``LM.param_paths``); the default is the keystr paths of ``tree``."""
+        ``LM.param_paths``); the default is the keystr paths of ``tree``.
+
+        ``by_rule=True`` groups leaves by the index of the policy rule
+        that matched them instead of by resolved config. When every rule
+        resolves to a distinct config the groups and their order are the
+        same as by config; but the rule partition does not change when a
+        ``BitSchedule`` phase re-materializes the configs (two ramps on
+        the same scheme stay two groups), so EF residual shapes survive
+        a phase boundary (:meth:`with_configs`)."""
         pairs, treedef = tree_flatten_with_path(tree)
         path_strs = ([p for p, _ in pairs] if paths is None
                      else tree_leaves(paths))
@@ -348,24 +391,38 @@ class PolicyLayout:
             warnings.warn(f"policy rules matched no parameter leaf: {dead}; "
                           f"check the patterns against the model's param "
                           f"paths", stacklevel=2)
-        group_ix: Dict[QuantConfig, int] = {}
+        group_ix: Dict[Any, int] = {}
+        g_cfg: List[QuantConfig] = []
+        g_rule: List[Optional[int]] = []
         g_leaves: List[List[int]] = []
         g_off: List[int] = []
         slots, leaf_group = [], []
         for i, ((_, leaf), path) in enumerate(zip(pairs, path_strs)):
             cfg = policy.resolve(path)
-            gi = group_ix.setdefault(cfg, len(group_ix))
+            rid = policy.resolve_ix(path) if by_rule else None
+            gi = group_ix.setdefault(rid if by_rule else cfg, len(group_ix))
             if gi == len(g_leaves):
+                g_cfg.append(cfg)
+                g_rule.append(rid)
                 g_leaves.append([])
                 g_off.append(0)
             slots.append(_slot(path, leaf, g_off[gi]))
             g_off[gi] += slots[-1].size
             g_leaves[gi].append(i)
             leaf_group.append(gi)
-        groups = tuple(GroupSegment(cfg=c, leaf_ids=tuple(ls), size=off)
-                       for c, ls, off in zip(group_ix, g_leaves, g_off))
+        groups = tuple(GroupSegment(cfg=c, leaf_ids=tuple(ls), size=off,
+                                    rule_id=r)
+                       for c, r, ls, off in zip(g_cfg, g_rule, g_leaves,
+                                                g_off))
         return cls(treedef=treedef, slots=tuple(slots), groups=groups,
                    leaf_group=tuple(leaf_group))
+
+    def with_configs(self, policy: QuantPolicy) -> "PolicyLayout":
+        """A ``by_rule`` layout specialized to one phase's configs: the
+        same slots, offsets and groups, each group's config re-resolved
+        through its ``rule_id``."""
+        return dataclasses.replace(
+            self, groups=_with_configs(self.groups, policy))
 
     @property
     def size(self) -> int:
@@ -400,10 +457,14 @@ class PartitionedExchange:
     def build(cls, policy: QuantPolicy, tree, group=None, *, paths=None,
               max_chunk_elems: Optional[int] = None,
               pipeline_chunks: int = 1,
-              intra_group=None) -> "PartitionedExchange":
+              intra_group=None, by_rule: bool = False
+              ) -> "PartitionedExchange":
         """``group`` is the quantized (inter) group; an ``intra_group``
-        (the pod) makes every group's engine two-level."""
-        layout = PolicyLayout.from_tree(tree, policy, paths=paths)
+        (the pod) makes every group's engine two-level. ``by_rule=True``
+        groups by policy rule (bit-schedule skeletons; see
+        ``PolicyLayout.from_tree``)."""
+        layout = PolicyLayout.from_tree(tree, policy, paths=paths,
+                                        by_rule=by_rule)
         engines = tuple(
             GradientExchange(g.cfg.to_quantizer(), group,
                              server_requant=g.cfg.server_requant,
@@ -412,6 +473,16 @@ class PartitionedExchange:
                              intra_group=intra_group)
             for g in layout.groups)
         return cls(layout=layout, engines=engines)
+
+    def specialize(self, policy: QuantPolicy) -> "PartitionedExchange":
+        """One phase's engine from a ``by_rule`` skeleton: the layout is
+        reused, only each group's quantizer is rebuilt from the phase's
+        config. Group count, order, sizes and key folding, and so the EF
+        residual shapes, are the same in every phase."""
+        layout = self.layout.with_configs(policy)
+        return dataclasses.replace(
+            self, layout=layout, engines=_respecialized(self.engines,
+                                                        layout.groups))
 
     @property
     def two_level(self) -> bool:
@@ -498,6 +569,17 @@ class PartitionedExchange:
         return tuple(eng.qdq_local_flat(buf, self._group_key(key, gi))
                      for gi, (eng, buf) in enumerate(zip(self.engines,
                                                          bufs)))
+
+    def group_stats(self, bufs: Sequence[torch.Tensor],
+                    ef=None) -> torch.Tensor:
+        """(n_groups, 3) f32 rows ``[sigma_sq, clip_frac, ef_norm_sq]`` of
+        the per-group buffers the encode consumes (each bucketed at its
+        group's bucket size, ``wire.encode_stats``) and the squared norm
+        of each group's EF residual (``ef`` group-aligned; 0 without
+        EF): the ``BitBudgetController``'s feed. Reductions only."""
+        return torch.stack([
+            _stats_row(eng.qz, buf, None if ef is None else ef[gi])
+            for gi, (eng, buf) in enumerate(zip(self.engines, bufs))])
 
     def collective_launches(self) -> int:
         return sum(eng.collective_launches(g.size)
@@ -750,25 +832,30 @@ def policy_link_stats(policy: QuantPolicy, path_sizes, *, n_intra: int,
 
 
 def observed_link_stats(ex: PartitionedExchange, *, n_intra: int,
-                        n_inter: int, sync_every: int = 1
+                        n_inter: int, stats=None, sync_every: int = 1
                         ) -> Tuple[Dict[str, float],
                                    Tuple[Dict[str, Any], ...]]:
     """Per-link accounting of an engine as built (the sibling of
     :func:`policy_link_stats`, which re-derives the groups from a policy):
-    (summed totals, one row per group with its label, size and
-    :func:`link_stats`). The reference's optional runtime ``stats``
-    columns belong to the bit schedule, which is not ported."""
+    (summed totals, one row per group with its label, size, rule id and
+    :func:`link_stats`; with ``stats``, the step's ``exchange_stats``, also
+    the observed ``sigma_sq`` / ``clip_frac`` / ``ef_norm_sq``). The
+    launcher's ``BitBudgetController`` prices its assignments here."""
     two_level = ex.two_level
     total, rows = _zero_links(), []
-    for eng, g in zip(ex.engines, ex.layout.groups):
+    for gi, (eng, g) in enumerate(zip(ex.engines, ex.layout.groups)):
         st = link_stats(eng.qz, g.size, n_intra=n_intra, n_inter=n_inter,
                         two_level=two_level,
                         server_requant=eng.server_requant,
                         max_chunk_elems=eng.max_chunk_elems,
                         pipeline_chunks=eng.pipeline_chunks,
                         sync_every=sync_every)
-        rows.append({"label": g.cfg.name, "size": g.size, "rule_id": None,
-                     **st})
+        row: Dict[str, Any] = {"label": g.cfg.name, "size": g.size,
+                               "rule_id": g.rule_id, **st}
+        if stats is not None:
+            s = [float(v) for v in stats[gi]]
+            row.update(sigma_sq=s[0], clip_frac=s[1], ef_norm_sq=s[2])
+        rows.append(row)
         for k in total:
             total[k] += st[k]
     return total, tuple(rows)

@@ -46,8 +46,9 @@ from repro_torch.core.comm.collectives import (_all_gather, _rs_mean_parts,
                                                local_qdq_comm_layout,
                                                quantized_reduce_scatter_mean,
                                                scatter_mean, world)
-from repro_torch.core.comm.exchange import (GradientExchange, _zero_links,
-                                            link_stats)
+from repro_torch.core.comm.exchange import (GradientExchange, _respecialized,
+                                            _stats_row, _with_configs,
+                                            _zero_links, link_stats)
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quantizers import Quantizer
 from repro_torch.utils.pytree import (tree_flatten_with_path, tree_leaves,
@@ -113,12 +114,14 @@ class FsdpSlot:
 
 @dataclasses.dataclass(frozen=True)
 class FsdpGroup:
-    """One policy group's segment."""
+    """One policy group's segment (``rule_id``: see
+    ``exchange.GroupSegment``)."""
 
     cfg: QuantConfig
     sharded: bool                # True: reduce-scatter; False: all-reduce
     leaf_ids: Tuple[int, ...]    # canonical leaf order indices, ascending
     size: int                    # full element count of the group buffer
+    rule_id: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,17 +137,21 @@ class FsdpLayout:
 
     @classmethod
     def from_tree(cls, tree, policy: QuantPolicy, *, paths, shard_dims,
-                  n_shards: int) -> "FsdpLayout":
+                  n_shards: int, by_rule: bool = False) -> "FsdpLayout":
         """``tree`` has the FULL leaf shapes; ``paths`` is a tree of path
         strings aligned with it; ``shard_dims``: path -> dp-shard dim in
         full coordinates (None: replicated). Every sharded leaf's
-        ``shape[dim]`` must divide by ``n_shards``."""
+        ``shape[dim]`` must divide by ``n_shards``. ``by_rule=True`` keys
+        the groups on ``(policy rule index, sharded)`` instead of
+        ``(config, sharded)``, the partition a ``BitSchedule`` keeps
+        across phases (see ``PolicyLayout.from_tree``)."""
         pairs, treedef = tree_flatten_with_path(tree)
         path_strs = tree_leaves(paths)
         if len(path_strs) != len(pairs):
             raise ValueError(f"{len(path_strs)} paths given, the tree has "
                              f"{len(pairs)} leaves")
-        group_ix: Dict[Tuple[QuantConfig, bool], int] = {}
+        group_ix: Dict[Tuple[Any, bool], int] = {}
+        g_cfg: List[Tuple[QuantConfig, bool, Optional[int]]] = []
         g_leaves: List[List[int]] = []
         g_off: List[int] = []
         slots, leaf_group = [], []
@@ -156,9 +163,12 @@ class FsdpLayout:
                     f"leaf {path!r} shape {shape} is not divisible by "
                     f"{n_shards} along dim {dim}")
             sharded = dim is not None
-            gi = group_ix.setdefault((policy.resolve(path), sharded),
+            cfg = policy.resolve(path)
+            rid = policy.resolve_ix(path) if by_rule else None
+            gi = group_ix.setdefault((rid if by_rule else cfg, sharded),
                                      len(group_ix))
             if gi == len(g_leaves):
+                g_cfg.append((cfg, sharded, rid))
                 g_leaves.append([])
                 g_off.append(0)
             size = math.prod(shape)
@@ -171,10 +181,16 @@ class FsdpLayout:
             leaf_group.append(gi)
         groups = tuple(
             FsdpGroup(cfg=cfg, sharded=sh, leaf_ids=tuple(ls),
-                      size=off * (n_shards if sh else 1))
-            for (cfg, sh), ls, off in zip(group_ix, g_leaves, g_off))
+                      size=off * (n_shards if sh else 1), rule_id=r)
+            for (cfg, sh, r), ls, off in zip(g_cfg, g_leaves, g_off))
         return cls(treedef=treedef, slots=tuple(slots), groups=groups,
                    leaf_group=tuple(leaf_group), n_shards=n_shards)
+
+    def with_configs(self, policy: QuantPolicy) -> "FsdpLayout":
+        """A ``by_rule`` layout specialized to one phase's configs (see
+        ``PolicyLayout.with_configs``)."""
+        return dataclasses.replace(
+            self, groups=_with_configs(self.groups, policy))
 
     @property
     def size(self) -> int:
@@ -309,14 +325,16 @@ class FsdpExchange:
               paths, shard_dims, n_shards: int, group=None,
               max_chunk_elems: Optional[int] = None, intra_axes=(),
               n_intra: int = 1, pipeline_chunks: int = 1,
-              intra_group=None, inter_group=None) -> "FsdpExchange":
+              intra_group=None, inter_group=None,
+              by_rule: bool = False) -> "FsdpExchange":
         """``axis_names`` is the ordered dp tuple; a non-empty
         ``intra_axes`` (size ``n_intra``) selects the two-level mode, with
         the pod's ``intra_group`` and the ``inter_group`` across pods; the
         axis names alone price it (the accounting needs no process
         group), the exchange itself needs the groups.
         ``max_chunk_elems`` caps replicated groups only: a sharded group
-        reduce-scatters in one piece (its rows are the worker chunks)."""
+        reduce-scatters in one piece (its rows are the worker chunks).
+        ``by_rule`` groups by policy rule (``FsdpLayout.from_tree``)."""
         dp = tuple(axis_names)
         intra = tuple(intra_axes)
         inter = tuple(a for a in dp if a not in intra)
@@ -333,7 +351,7 @@ class FsdpExchange:
             n_intra = 1
         layout = FsdpLayout.from_tree(tree, policy, paths=paths,
                                       shard_dims=shard_dims,
-                                      n_shards=n_shards)
+                                      n_shards=n_shards, by_rule=by_rule)
         engines = tuple(
             GradientExchange(
                 g.cfg.to_quantizer(), inter_group if intra else group,
@@ -345,6 +363,16 @@ class FsdpExchange:
         return cls(layout=layout, engines=engines, dp_axes=dp,
                    intra_axes=intra, n_intra=n_intra,
                    pipeline_chunks=pipeline_chunks, group=group)
+
+    def specialize(self, policy: QuantPolicy) -> "FsdpExchange":
+        """One phase's engine from a ``by_rule`` skeleton (see
+        ``PartitionedExchange.specialize``): the same groups and EF sizes
+        in every phase (a ramp never materializes to an identity scheme,
+        so the None pattern stays too)."""
+        layout = self.layout.with_configs(policy)
+        return dataclasses.replace(
+            self, layout=layout, engines=_respecialized(self.engines,
+                                                        layout.groups))
 
     @property
     def inter_axes(self) -> Tuple[str, ...]:
@@ -506,6 +534,20 @@ class FsdpExchange:
             else:
                 sizes.append(-(-g.size // self.n_intra))
         return tuple(sizes)
+
+    def group_stats_stored(self, grads_tree, ef=None) -> torch.Tensor:
+        """(n_groups, 3) f32 rows ``[sigma_sq, clip_frac, ef_norm_sq]``
+        from the STORED-shard gradient tree the exchange hands back (each
+        worker's slices of the across-worker mean): unlike the replicated
+        ``PartitionedExchange.group_stats`` a post-exchange approximation,
+        as in the reference; the controller reads relative magnitudes."""
+        leaves = self.layout._check(tree_leaves(grads_tree))
+        return torch.stack([
+            _stats_row(eng.qz, torch.cat([leaves[i].to(torch.float32)
+                                          .reshape(-1) for i in g.leaf_ids]),
+                       None if ef is None else ef[gi])
+            for gi, (eng, g) in enumerate(zip(self.engines,
+                                              self.layout.groups))])
 
     # -- static cost accounting --------------------------------------------
     def quantized_group_count(self) -> int:

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import clipping
+from repro_torch.core import buckets, clipping
 from repro_torch.core import encode as E
 from repro_torch.core import rounding as R
 from repro_torch.core.quantizers import Quantizer
@@ -220,6 +220,39 @@ def decode_each_multipass(qz: Quantizer, words: torch.Tensor,
     gather of ``Quantizer.decode``; equal by value to :func:`decode_each`
     (the gather keeps a level of -0.0, the fused lookup may give +0.0)."""
     return Quantizer.decode(_unpack_stack(qz, words, d_eff), levels)
+
+
+def bucket_stats(bkt: torch.Tensor, mask: torch.Tensor, *,
+                 clip_c: Optional[float] = None) -> torch.Tensor:
+    """(nb, d) buckets + validity mask -> (3,) f32 ``[sigma_sq, clip_frac,
+    l2_sq]``: the count-weighted mean per-bucket variance, the fraction of
+    valid elements a ``clip_c``-sigma clip would clamp, and the buffer's
+    squared norm (the reference's ``kernels/ops.bucket_stats``). Row
+    reductions only, no kernel, as in the reference: float-close to it,
+    not bit-equal."""
+    m = mask.to(bkt.dtype)
+    per = m.sum(dim=-1, keepdim=True)
+    cnt = torch.clamp(per, min=1.0)
+    mean = (bkt * m).sum(dim=-1, keepdim=True) / cnt
+    var = (((bkt - mean) ** 2) * m).sum(dim=-1, keepdim=True) / cnt
+    total = torch.clamp(m.sum(), min=1.0)
+    sigma_sq = (var[:, 0] * per[:, 0]).sum() / total
+    if clip_c is None:
+        clip_frac = torch.zeros((), dtype=bkt.dtype, device=bkt.device)
+    else:
+        lim = clip_c * torch.sqrt(var)
+        clip_frac = ((bkt.abs() > lim).to(bkt.dtype) * m).sum() / total
+    l2_sq = ((bkt * m) ** 2).sum()
+    return torch.stack([sigma_sq, clip_frac, l2_sq]).to(torch.float32)
+
+
+def encode_stats(qz: Quantizer, flat: torch.Tensor,
+                 d_eff: int) -> torch.Tensor:
+    """(3,) f32 ``[sigma_sq, clip_frac, l2_sq]`` of a flat buffer under
+    ``qz``'s bucket layout (:func:`bucket_stats`): the statistics the
+    adaptive ``BitBudgetController`` re-solves per-group bits from."""
+    bkt, mask = buckets.to_buckets(flat.to(torch.float32), d_eff)
+    return bucket_stats(bkt, mask, clip_c=qz.clip_c)
 
 
 def wire_unit_bytes(qz: Quantizer, nb: int, d_eff: int) -> int:

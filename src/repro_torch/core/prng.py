@@ -34,24 +34,28 @@ _PARITY = 0x1BD11BDA
 IntLike = Union[int, torch.Tensor]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
-
-
 def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor):
     """The 20-round Threefry-2x32 block on int64 tensors holding uint32
     words (broadcast together) -> (y1, y2), the unrolled form of jax's
-    ``_threefry2x32_lowering``."""
+    ``_threefry2x32_lowering``. The two state words are updated in place
+    (one scratch buffer for the rotations): a draw of n words allocates
+    three n-word tensors, not a hundred."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x0 = (x1 + ks[0]) & MASK32
-    y = (x2 + ks[1]) & MASK32
+    x0 = torch.add(x1, ks[0]).bitwise_and_(MASK32)
+    y = torch.add(x2, ks[1]).bitwise_and_(MASK32)
+    x0, y = torch.broadcast_tensors(x0, y)
+    x0, y = x0.contiguous(), y.contiguous()
+    t = torch.empty_like(y)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + y) & MASK32
-            y = _rotl(y, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        y = (y + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            x0.add_(y).bitwise_and_(MASK32)
+            # y = rotl(y, r) ^ x0
+            torch.bitwise_left_shift(y, r, out=t)
+            y.bitwise_right_shift_(32 - r).bitwise_or_(t)
+            y.bitwise_and_(MASK32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        y.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
     return x0, y
 
 

@@ -27,6 +27,17 @@ exchange (the reference's ``launch/train.py``).
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --quant orq-9 \\
         --pods 2 --hierarchy two_level
 
+    # the temporal hierarchy: 3 inner steps averaged within each pod, then
+    # one quantized exchange of the window's parameter delta across pods
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --quant orq-9 \\
+        --pods 2 --hierarchy two_level_async --local-steps 4
+
+    # adaptive bit budget: per-group wire bits follow a schedule (and, with
+    # --bit-budget, a bytes/step water-filling solve fed by the exchange's
+    # statistics)
+    python -m repro_torch.launch.train --steps 100 --resolve-every 25 \\
+        --bit-schedule "norm|bias=fp,default=orq@5..2" [--bit-budget 2e5]
+
 Without ``torchrun`` the launcher starts a world of one through a
 ``file://`` store in a temporary directory: NCCL on the card, gloo with
 ``--device cpu`` (which runs the kernels' plain versions). Weights are
@@ -36,12 +47,17 @@ rows of the global batch. A sha256 digest of the final parameters (in
 fsdp mode the full parameters, gathered in rank order) is printed
 (``params sha256 ...``) and written to ``--metrics-out``, with the step's
 collective launches and wire bytes per worker from the engine's own
-accounting. Checkpoints are the reference's file format: rank 0 writes
-the full arrays (fsdp shards gathered in rank order, EF buffers stacked
-over the ranks), and ``--resume`` slices them back.
+accounting (per step over the window in two_level_async mode, where the
+digest covers every worker's params stacked in rank order, the
+reference's stacked tree). With ``--bit-schedule`` each logged row
+carries the step's bits and ``--metrics-out`` the controller's
+``bit_decisions``. Checkpoints are the reference's file format: rank 0
+writes the full arrays (fsdp shards gathered in rank order, EF buffers
+stacked over the ranks, async params and optimizer state stacked over
+the ranks), and ``--resume`` slices them back.
 
-The async hierarchy, bit schedules and model parallelism are not ported
-yet (ROADMAP.md); their flags exit with a message.
+Model parallelism is not ported yet (ROADMAP.md); its flag exits with a
+message.
 """
 from __future__ import annotations
 
@@ -61,13 +77,17 @@ from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.core import prng
 from repro_torch.core.api import all_methods
 from repro_torch.core.comm.hierarchical import HIERARCHIES
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.comm.exchange import observed_link_stats
+from repro_torch.core.policy import (BitBudgetController, BitSchedule,
+                                     QuantPolicy)
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.optim.schedule import step_decay
 from repro_torch.train import TrainConfig, init_state, make_train_step
-from repro_torch.train.step import StateSharding
+from repro_torch.train.step import (ScheduledTrainStep, StateSharding,
+                                    check_async_axes, dp_world,
+                                    specialize_engines)
 from repro_torch.utils.pytree import tree_leaves
 
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
@@ -97,6 +117,21 @@ def _parser() -> argparse.ArgumentParser:
         help="quantization scheme or per-parameter-group policy string "
              "('pattern=scheme[,...][,default=scheme]'); registered "
              f"schemes: {', '.join(all_methods())}")
+    ap.add_argument(
+        "--bit-schedule", default=None, metavar="SCHEDULE",
+        help="adaptive bit schedule: the --quant policy grammar extended "
+             "with bit-ramp tokens 'family@HI..LO', HI <= 5 (e.g. "
+             "\"embed=orq@5..3,norm|bias=fp,default=orq@4..1\"); per-group "
+             "wire bits follow the ramp over --steps, re-resolved every "
+             "--resolve-every steps. Mutually exclusive with --quant.")
+    ap.add_argument(
+        "--bit-budget", type=float, default=None, metavar="BYTES",
+        help="quantized-DCN bytes/step budget: each phase water-fills "
+             "bits from the ramps' LO toward the deterministic ramp value, "
+             "largest marginal MSE reduction per byte first, fed by the "
+             "exchange's statistics (needs --bit-schedule)")
+    ap.add_argument("--resolve-every", type=int, default=50,
+                    help="bit-schedule phase length in steps")
     ap.add_argument("--bucket", type=int, default=2048)
     ap.add_argument("--clip-c", type=float, default=None)
     ap.add_argument("--mode", default="replicated",
@@ -107,7 +142,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--hierarchy", default="auto", choices=list(HIERARCHIES),
                     help="two_level quantizes only across pods after a "
                          "full-precision mean within each pod; auto picks "
-                         "two_level whenever --pods > 1")
+                         "two_level whenever --pods > 1; two_level_async "
+                         "runs --local-steps inner steps averaged within "
+                         "each pod between quantized outer syncs of the "
+                         "parameter delta (needs --pods >= 2 and "
+                         "replicated mode)")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="two_level_async window H: inner steps per "
+                         "quantized outer sync (H = 1 is two_level)")
+    ap.add_argument("--outer-optimizer", default="nesterov",
+                    choices=["nesterov", "sgd"],
+                    help="outer optimizer applied to the window's "
+                         "parameter delta at sync steps")
+    ap.add_argument("--outer-lr", type=float, default=0.7)
+    ap.add_argument("--outer-momentum", type=float, default=0.9)
     ap.add_argument("--pods", type=int, default=1,
                     help="split the workers into this many pods (rank = "
                          "pod * workers_per_pod + index)")
@@ -138,26 +186,77 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
-    # reference flags whose paths are not ported yet
-    ap.add_argument("--bit-schedule", default=None)
-    ap.add_argument("--local-steps", type=int, default=1)
+    # a reference flag whose path is not ported yet
     ap.add_argument("--model-parallel", type=int, default=1)
     return ap
 
 
-def _refuse_unported(ap, args) -> None:
-    checks = [
-        (args.bit_schedule is not None, "--bit-schedule"),
-        (args.hierarchy == "two_level_async",
-         "--hierarchy two_level_async"),
-        (args.local_steps != 1, "--local-steps"),
-        (args.model_parallel != 1, "--model-parallel"),
-    ]
-    for bad, what in checks:
-        if bad:
-            ap.error(f"{what} {_NOT_PORTED}")
+def _check_args(ap, args):
+    """Refusals while parsing, before any process group or model exists,
+    with the reference launcher's messages -> (schedule or None, tcfg)."""
+    if args.model_parallel != 1:
+        ap.error(f"--model-parallel {_NOT_PORTED}")
     if args.checkpoint_at is not None and not args.state_checkpoint:
         ap.error("--checkpoint-at needs --state-checkpoint")
+    schedule = None
+    try:
+        if args.bit_schedule is not None:
+            if args.quant != "fp":
+                ap.error("--bit-schedule and --quant are mutually exclusive "
+                         "(the schedule IS the policy; put static entries "
+                         "in the schedule string)")
+            if args.bit_budget is not None and args.per_leaf_exchange:
+                ap.error("--bit-budget needs the fused exchange (its "
+                         "statistics feed) — drop --per-leaf-exchange")
+            schedule = BitSchedule.parse(args.bit_schedule,
+                                         bucket_size=args.bucket,
+                                         clip_c=args.clip_c)
+        policy = (None if schedule is not None else
+                  QuantPolicy.parse(args.quant, bucket_size=args.bucket,
+                                    clip_c=args.clip_c))
+        tcfg = TrainConfig(
+            policy=policy, mode=args.mode, hierarchy=args.hierarchy,
+            local_steps=args.local_steps,
+            outer_optimizer=args.outer_optimizer, outer_lr=args.outer_lr,
+            outer_momentum=args.outer_momentum,
+            error_feedback=args.error_feedback,
+            fused_exchange=not args.per_leaf_exchange,
+            exchange_chunk_elems=args.exchange_chunk,
+            pipeline_chunks=args.pipeline_chunks,
+            # the water-filling solve reads the statistics; the plain ramp
+            # needs none, so the step skips them without a budget
+            collect_stats=(schedule is not None
+                           and args.bit_budget is not None))
+        # --pods 1 names no pod axis, as the reference's host mesh
+        check_async_axes(tcfg, dp_world(args.pods, args.pods)[0])
+    except ValueError as e:
+        ap.error(str(e))
+    return schedule, tcfg
+
+
+def _scheduled_step(model, tcfg, schedule, args, lr_fn):
+    """The ScheduledTrainStep of ``--bit-schedule``, its controller
+    pricing an assignment with the per-link accounting of the engines as
+    built (the reference launcher's cost_fn): the quantized DCN bytes a
+    step, the outer exchange amortized over a two_level_async window."""
+    controller = BitBudgetController(
+        schedule, total_steps=args.steps, resolve_every=args.resolve_every,
+        dcn_budget_bytes=args.bit_budget)
+    step_fn = ScheduledTrainStep(model, tcfg, controller, lr_fn,
+                                 pods=args.pods)
+    lay = step_fn.skeleton.layout
+    n_intra = max(1, lay.n_intra)
+    n_inter = max(1, lay.n_dp // n_intra)
+
+    def cost_fn(phase_policy):
+        eng = specialize_engines(step_fn.skeleton, phase_policy)
+        total, _ = observed_link_stats(eng.pex, n_intra=n_intra,
+                                       n_inter=n_inter,
+                                       sync_every=lay.local_steps)
+        return total["dcn_q_bytes"]
+
+    controller.cost_fn = cost_fn
+    return step_fn, controller
 
 
 def _init_world(device):
@@ -186,23 +285,14 @@ def _init_world(device):
     return device, 0, 1, tmp
 
 
-def train(argv=None) -> dict:
+def train(argv=None, on_step=None) -> dict:
     """Run the launcher; returns the run's record (history, per-step
-    seconds, digest, wire accounting, final state)."""
+    seconds, digest, wire accounting, final state). ``on_step(i, state,
+    metrics, step_fn)``, if given, runs on every rank after each step
+    (inspection from Python: digests, launch counts)."""
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
-    try:
-        policy = QuantPolicy.parse(args.quant, bucket_size=args.bucket,
-                                   clip_c=args.clip_c)
-        tcfg = TrainConfig(policy=policy, mode=args.mode,
-                           hierarchy=args.hierarchy,
-                           error_feedback=args.error_feedback,
-                           fused_exchange=not args.per_leaf_exchange,
-                           exchange_chunk_elems=args.exchange_chunk,
-                           pipeline_chunks=args.pipeline_chunks)
-    except (ValueError, NotImplementedError) as e:
-        ap.error(str(e))
+    schedule, tcfg = _check_args(ap, args)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     model = LM(cfg)
     device, rank, ws, created = _init_world(resolve_device(args.device))
@@ -210,11 +300,15 @@ def train(argv=None) -> dict:
         if args.batch % ws:
             ap.error(f"--batch {args.batch} does not split over {ws} "
                      f"workers")
+        lr_fn = step_decay(args.lr, [args.steps // 2, 3 * args.steps // 4])
+        controller = None
         try:
-            step_fn = make_train_step(
-                model, tcfg, step_decay(args.lr, [args.steps // 2,
-                                                  3 * args.steps // 4]),
-                pods=args.pods)
+            if schedule is not None:
+                step_fn, controller = _scheduled_step(model, tcfg, schedule,
+                                                      args, lr_fn)
+                tcfg = step_fn.init_config
+            else:
+                step_fn = make_train_step(model, tcfg, lr_fn, pods=args.pods)
         except (ValueError, NotImplementedError) as e:
             ap.error(str(e))
         state = init_state(model, tcfg, seed=args.seed, device=device,
@@ -242,6 +336,8 @@ def train(argv=None) -> dict:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_s.append(time.perf_counter() - ts)
+            if on_step is not None:
+                on_step(i, state, metrics, step_fn)
             if args.state_checkpoint and args.checkpoint_at == i + 1:
                 _save(rank, args.state_checkpoint, sharding.gather(state),
                       state.step)
@@ -249,10 +345,15 @@ def train(argv=None) -> dict:
                 row = {"step": i, "loss": float(metrics["loss"]),
                        "nll": float(metrics["nll"]),
                        "lr": float(metrics["lr"])}
+                bits = ""
+                if controller is not None:
+                    row["bits"] = list(step_fn.last_assignment)
+                    bits = " bits " + ",".join(
+                        "fp" if b is None else str(b) for b in row["bits"])
                 history.append(row)
                 if rank == 0:
                     per = (time.perf_counter() - t0) / (i - start + 1)
-                    print(f"step {i:5d} loss {row['loss']:.4f} "
+                    print(f"step {i:5d} loss {row['loss']:.4f}{bits} "
                           f"({per:.2f}s/step)", flush=True)
         full_params = sharding.full_params(state.params)
         digest = params_digest(full_params)
@@ -271,7 +372,9 @@ def train(argv=None) -> dict:
                "step_s": step_s, "world_size": ws, "rank": rank,
                "mode": args.mode, "pods": args.pods,
                "two_level": step_fn.layout.two_level,
-               "n_params": sum(p.numel() for p in tree_leaves(full_params)),
+               "n_params": sum(p.numel() for p in tree_leaves(
+                   model.abstract_params())),
+               "local_steps": step_fn.layout.local_steps,
                "exchange": ("per-leaf" if args.per_leaf_exchange
                             else "fused"),
                "pipeline_chunks": args.pipeline_chunks,
@@ -281,6 +384,8 @@ def train(argv=None) -> dict:
                                          if step_fn.link_bytes else None),
                "replicas_in_sync": in_sync, "device": str(device),
                "state": state}
+        if controller is not None:
+            out["bit_decisions"] = controller.decisions
         if rank == 0:
             print("params sha256", digest, flush=True)
             print(f"replicas in sync: {in_sync} ({ws} workers)", flush=True)

@@ -271,19 +271,42 @@ def test_step_draws_on_params_device(world1, ref_runs, monkeypatch):
 
 
 def test_train_config_refuses_unported(world1):
-    # fsdp and the two-level hierarchy are ported
-    # (test_torch_fsdp_train.py, test_torch_hierarchical.py); the async
-    # hierarchy and its window are not
+    # fsdp, the two-level hierarchy and its async window are ported
+    # (test_torch_fsdp_train.py, test_torch_hierarchical.py,
+    # test_torch_async.py); TrainConfig refuses what the reference's
+    # refuses, with its messages, and model parallelism stays refused
     assert TrainConfig(mode="fsdp", hierarchy="two_level").mode == "fsdp"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(hierarchy="two_level_async")
+    tcfg = TrainConfig(policy="orq-9", hierarchy="two_level_async",
+                       local_steps=4)
+    assert (tcfg.outer_optimizer, tcfg.outer_lr, tcfg.outer_momentum) == \
+        (jstep.TrainConfig(policy="orq-9", mode="replicated",
+                           hierarchy="two_level_async", local_steps=4)
+         .outer_optimizer, 0.7, 0.9)
+    for kw, match in (
+            (dict(hierarchy="two_level_async", local_steps=4, mode="fsdp"),
+             "replicated"),
+            (dict(hierarchy="two_level_async", local_steps=4,
+                  fused_exchange=False), "fused_exchange"),
+            (dict(hierarchy="two_level", local_steps=4), "two_level_async"),
+            (dict(local_steps=0), "local_steps"),
+            (dict(hierarchy="two_level_async", local_steps=4,
+                  outer_optimizer="adamw"), "outer_optimizer")):
+        with pytest.raises(ValueError, match=match):
+            jstep.TrainConfig(policy="orq-9", **{"mode": "replicated", **kw})
+        with pytest.raises(ValueError, match=match):
+            TrainConfig(policy="orq-9", **kw)
     with pytest.raises(ValueError, match="mode"):
         TrainConfig(mode="zero2")
     with pytest.raises(TypeError):
-        TrainConfig(local_steps=4)
+        TrainConfig(compute_dtype="bf16")
+    from repro_torch.train.step import plan_sharding_shapes
+    model = LM(get_smoke_config("lm-100m"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        plan_sharding_shapes(model, model.abstract_params(),
+                             dp_axes=("data",),
+                             axis_sizes={"data": 1, "model": 2})
     # the pipelined schedule is ported; a K below 1 is refused, as the
     # reference's engine refuses it
-    model = LM(get_smoke_config("lm-100m"))
     with pytest.raises(ValueError, match="pipeline_chunks"):
         exchange_engine(model, TrainConfig(policy="orq-9",
                                            pipeline_chunks=0))
@@ -324,21 +347,35 @@ def test_cli_runs_on_cpu(tmp_path):
     assert m["wire_bytes_per_worker"] > 0 and m["world_size"] == 1
 
 
-@pytest.mark.parametrize("flags", [["--bit-schedule", "default=orq@5..3"],
-                                   ["--hierarchy", "two_level_async"],
-                                   ["--local-steps", "4"],
-                                   ["--model-parallel", "2"]])
+# the reference launcher's exits with code 2 (and the one flag whose path
+# is not ported), by what the message names
+CLI_REFUSALS = {
+    ("--bit-schedule", "default=orq@5..3", "--quant", "orq-9"):
+        "mutually exclusive",
+    ("--hierarchy", "two_level_async", "--local-steps", "4"):
+        "needs an inter-pod dp axis",
+    ("--local-steps", "4"): "set hierarchy='two_level_async'",
+    ("--model-parallel", "2"): "ROADMAP",
+    ("--bit-schedule", "default=orq@5..3", "--bit-budget", "1e5",
+     "--per-leaf-exchange"): "--bit-budget needs the fused exchange",
+}
+
+
+@pytest.mark.parametrize("flags", [list(f) for f in CLI_REFUSALS])
 def test_cli_refuses_unported_flags(flags, capsys):
-    """Refused while parsing, before any process group or model exists.
-    (Every ``--quant`` scheme trains now; see
-    ``test_torch_train_schemes.py``; ``--pipeline-chunks`` and
-    ``--per-leaf-exchange`` run: ``test_torch_train_local.py``; the flags
-    ported since run in ``test_cli_runs_ported_flags``.)"""
+    """Refused while parsing, before any process group or model exists:
+    the reference launcher's refusals of the bit schedule and async flags
+    (``--pods 1`` has no pod axis), and model parallelism, not ported.
+    (Every ``--quant`` scheme trains; see ``test_torch_train_schemes.py``;
+    ``--pipeline-chunks`` and ``--per-leaf-exchange`` run:
+    ``test_torch_train_local.py``; ``--bit-schedule`` and the async
+    hierarchy run in ``test_torch_bit_schedule_train.py`` and
+    ``test_torch_async_checkpoint.py``.)"""
     from repro_torch.launch import train as launcher
     with pytest.raises(SystemExit) as e:
         launcher.train(["--smoke", "--device", "cpu", *flags])
     assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert CLI_REFUSALS[tuple(flags)] in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [["--mode", "fsdp"],
