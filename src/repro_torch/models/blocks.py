@@ -57,7 +57,8 @@ def check_dense_gqa(cfg: ModelConfig, spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"repro_torch ports dense GQA attention layers with RMSNorm "
             f"only (kind={spec.kind!r}, moe={spec.moe}, "
-            f"mla={cfg.mla is not None}, norm={cfg.norm!r})")
+            f"mla={cfg.mla is not None}, norm={cfg.norm!r}); the other "
+            f"layer kinds are not ported yet (see ROADMAP.md)")
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec,

@@ -16,7 +16,7 @@ from repro_torch.serve.kv_cache import KVQuantSpec, init_kv_pools
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_trace.py"]
 
 
 def _imports(path: pathlib.Path):
@@ -96,3 +96,24 @@ def test_launcher_needs_kv_quant():
                                          "--page-size", "4"])
     assert paged["path"] == "paged" and paged["engine"] is not None
     np.testing.assert_array_equal(dense["tokens"], paged["tokens"])
+
+
+@pytest.mark.parametrize("change", [{"norm": "ln"}, {"moe": True},
+                                    {"kind": "mamba"}, {"cross_attn": True}])
+def test_unported_layer_kinds_point_to_the_roadmap(change):
+    """A layer the port does not run is refused by name, pointing to
+    ROADMAP.md as the other refusals do."""
+    import dataclasses
+
+    from repro_torch.models.blocks import check_dense_gqa
+    from repro_torch.models.model import build_layer_specs
+
+    cfg = get_smoke_config("lm-100m")
+    spec = build_layer_specs(cfg)[0]
+    check_dense_gqa(cfg, spec)
+    if "norm" in change:
+        cfg = dataclasses.replace(cfg, **change)
+    else:
+        spec = dataclasses.replace(spec, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_dense_gqa(cfg, spec)

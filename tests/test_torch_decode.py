@@ -144,7 +144,7 @@ QDQ_CASES = [("rr", 9, 300), ("rr", 5, 97), ("rr", 17, 64), ("bin", 2, 300),
              ("sign", 2, 300)]
 
 
-def _qdq_inputs(nb, d, s, mode, seed):
+def _qdq_inputs(nb, d, s, mode, seed, edge=None):
     rng = np.random.default_rng(seed)
     v = (rng.standard_normal((nb, d)) * 0.3).astype(np.float32)
     mask = rng.random((nb, d)) >= 0.1
@@ -152,16 +152,54 @@ def _qdq_inputs(nb, d, s, mode, seed):
                      axis=-1).astype(np.float32)
     rb = (rng.integers(0, 2 ** 32, (nb, d), dtype=np.uint32)
           if mode == "rr" else None)
+    if edge is not None:
+        QDQ_EDGES[edge](v, levels)
     return v, mask, levels, rb
 
 
-@pytest.mark.parametrize("clip_c", [None, 2.5])
-@pytest.mark.parametrize("mode,s,d", QDQ_CASES)
-def test_qdq_fused_plain_exact(mode, s, d, clip_c):
-    """Given the reference's clip limit (a row reduction, float-close
-    across frameworks), the qdq values are exact; masked slots decode to
-    level 0."""
-    v, mask, levels, rb = _qdq_inputs(6, d, s, mode, seed=s * 10 + d)
+def _ties(v, lv):
+    """Equal levels (a whole table, an inner run, the top pair, the bottom
+    pair) and values exactly on them."""
+    s = lv.shape[1]
+    lv[0, :] = lv[0, 0]
+    lv[1, 1:s - 1] = lv[1, 1]
+    lv[2, -1] = lv[2, -2]
+    lv[3, 1] = lv[3, 0]
+    v[:4, :s] = lv[:4]
+
+
+def _nonfinite(v, lv):
+    """NaN, +inf, -inf and -0.0 values; row 3 holds one NaN, so its clip
+    limit is NaN."""
+    v[0, :6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, np.nan]
+    v[1, :] = np.inf
+    v[2, ::3] = -np.inf
+    v[3, v.shape[1] // 2] = np.nan
+
+
+def _nonfinite_levels(v, lv):
+    """NaN levels (inside, all, on top, at the bottom), infinite levels
+    and a descending table; infinite values."""
+    lv[0, 1] = np.nan
+    lv[1, :] = np.nan
+    lv[2, -1] = np.nan
+    lv[3, 0], lv[3, -1] = -np.inf, np.inf
+    lv[4] = lv[4, ::-1].copy()
+    lv[5, 0] = -np.inf
+    v[:6, :3] = [np.inf, -np.inf, 0.0]
+
+
+QDQ_EDGES = {"ties": _ties, "nonfinite": _nonfinite,
+             "nonfinite_levels": _nonfinite_levels}
+
+
+def _hold_qdq(mode, s, d, clip_c, edge=None):
+    """The plain qdq against the reference's kernel (interpret mode) given
+    the reference's clip limit (a row reduction, float-close across
+    frameworks): equal values (NaN where it gives NaN); masked slots
+    decode to level 0."""
+    v, mask, levels, rb = _qdq_inputs(6, d, s, mode, seed=s * 10 + d,
+                                      edge=edge)
     want = np.asarray(jfused_encode.qdq_fused(
         jnp.asarray(v), jnp.asarray(levels),
         None if rb is None else jnp.asarray(rb), jnp.asarray(mask), s=s,
@@ -176,6 +214,24 @@ def test_qdq_fused_plain_exact(mode, s, d, clip_c):
     np.testing.assert_array_equal(got.numpy()[~mask],
                                   np.broadcast_to(levels[:, :1],
                                                   mask.shape)[~mask])
+
+
+@pytest.mark.parametrize("clip_c", [None, 2.5])
+@pytest.mark.parametrize("mode,s,d", QDQ_CASES)
+def test_qdq_fused_plain_exact(mode, s, d, clip_c):
+    """Given the reference's clip limit, the qdq values are exact; masked
+    slots decode to level 0."""
+    _hold_qdq(mode, s, d, clip_c)
+
+
+@pytest.mark.parametrize("clip_c", [None, 2.5])
+@pytest.mark.parametrize("edge", sorted(QDQ_EDGES))
+@pytest.mark.parametrize("mode,s,d", QDQ_CASES)
+def test_qdq_fused_plain_exact_edges(mode, s, d, edge, clip_c):
+    """Tied levels, non-finite values and non-finite or unsorted level
+    tables: the reference's values; a NaN value or limit clips to NaN and
+    rounds to level 0, as jnp.clip does."""
+    _hold_qdq(mode, s, d, clip_c, edge)
 
 
 def test_qdq_matches_encode_then_decode():
