@@ -170,6 +170,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             phase 15's check: the sync step on five full-width leaves
             (phase 11's and the FFN's wo) from a state on the grid, card
             (NCCL) against CPU (gloo), bit-equal.
+19. paper_cifar  ``repro_torch.launch.paper_cifar.train`` on the card,
+            4 steps of every method of the reference example (fp,
+            terngrad, orq-3, orq-9, BinGrad-b) on the example's ResNet
+            (width 16, one block a stage: 25 leaves, 77,850 params) and on
+            ResNet-20 (61 leaves, 272,282 params): counters zeroed just
+            before each run must read qdq_fused leaves x steps (BinGrad-b
+            also encode_bingrad_fused leaves x steps; fp nothing); finite
+            losses, step times, loss and accuracy. Then card against CPU
+            from the same weights, batch and keys: the first gradient
+            within CIFAR_GRAD_ATOL of each leaf's largest entry, each
+            leaf's qdq of one fixed gradient bit-equal (terngrad, orq-3,
+            orq-9; BinGrad-b within LEVEL_RTOL but FLIP_SHARE), the params
+            after one fp step, and after one orq-9 optimizer step from
+            each side's qdq of the same gradient, within lr x the
+            gradient's bound.
+20. serve_archs  qwen1.5-32b, command-r-plus-104b, chameleon-34b,
+            gemma2-9b and gemma3-27b at full width with the depth cut to
+            one cycle of the layer pattern (1, 1, 1, 2, 6 layers; bf16
+            weights drawn on the card), the paged engine with orq-9 pages:
+            two prompts 64 tokens past the window (or of 128), 4 greedy
+            tokens; encode and decode_attend launches = forward calls x
+            layers. Every ``decode_attend`` call of one decode step held
+            against its plain version within ATOL_ATTEND (hd 128 / 256, GQA
+            ratios 1-12, softcap 50, the window mask) and the KV encode bit
+            for bit, both timed; then one ``--smoke`` orq-9 training step
+            of each through the launcher.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -206,8 +232,14 @@ ATOL_LOGITS_BIN = ATOL_LOGITS  # bf16 matmuls + 1-bit threshold flips
 PROFILE_PAD_S = 0.1
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s`` is the script's wall seconds so far, so the
+    gaps between lines break each phase's time down."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1174,8 +1206,7 @@ def profile_decode(torch, eng):
         eng.step()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(4):
@@ -1372,8 +1403,7 @@ def profile_train(torch, state, quant="orq-9", mode="replicated"):
         state, _ = step_fn(state, b, key)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         for b in batches:
             state, _ = step_fn(state, b, key)
@@ -2275,8 +2305,7 @@ def profile_dense_decode(torch, args):
     t0 = time.perf_counter()
     steps()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         steps()
         time.sleep(PROFILE_PAD_S)
@@ -2945,6 +2974,376 @@ def check_async_card_vs_cpu(torch, dev, grads):
         raise AssertionError("card and CPU async sync steps differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the paper's CIFAR setting (ResNet, per-leaf qdq, SGD with wd)
+# ---------------------------------------------------------------------------
+
+CIFAR_STEPS = 4
+#: config -> (ResNetConfig fields, leaves, parameters)
+CIFAR_CONFIGS = {"example": ({"width": 16, "blocks_per_stage": 1}, 25,
+                             77_850),
+                 "resnet20": ({}, 61, 272_282)}
+#: a float32 gradient of this net is good to ~5e-3 of a leaf's largest
+#: entry (the CPU tests' float64 comparison): card and CPU within 1e-2
+CIFAR_GRAD_ATOL = 1e-2
+
+
+def _cifar_expect(method, leaves, steps):
+    want = {k: 0 for k in _counters()}
+    if method != "fp":
+        want["qdq_fused"] = leaves * steps
+    if method == "bingrad-b":
+        want["encode_bingrad_fused"] = leaves * steps
+    return want
+
+
+def run_paper_cifar(torch, dev):
+    """``paper_cifar.train`` on the card for every method of the reference
+    example on both configs: launches (one ``qdq_fused`` a leaf a step,
+    BinGrad-b also one ``encode_bingrad_fused``; none for fp), finite
+    losses, step times, the table's loss and accuracy."""
+    from repro_torch.launch import paper_cifar as pc
+    from repro_torch.models.resnet import ResNetConfig
+    from repro_torch.utils.pytree import tree_leaves
+
+    totals = {k: 0 for k in _counters()}
+    smi = nvidia_smi()
+    for cname, (fields, leaves, n_params) in CIFAR_CONFIGS.items():
+        cfg = ResNetConfig(**fields)
+        for m in pc.METHODS:
+            _zero_counters()
+            t0 = time.perf_counter()
+            r = pc.train(m, CIFAR_STEPS, cfg=cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counters()
+            want = _cifar_expect(m, leaves, CIFAR_STEPS)
+            ps = tree_leaves(r.params)
+            emit("paper_cifar", config=cname, method=m, steps=CIFAR_STEPS,
+                 leaves=len(ps), n_params=sum(t.numel() for t in ps),
+                 losses=r.losses, loss=r.loss, accuracy=r.accuracy,
+                 step_ms=[t * 1e3 for t in r.step_s],
+                 step_p50_ms_after_first=statistics.median(
+                     r.step_s[1:]) * 1e3,
+                 wall_s=wall, sha256=r.sha256, launches=launches,
+                 expected_launches=want, device=smi)
+            if launches != want:
+                raise AssertionError(f"paper_cifar {cname} {m}: launches "
+                                     f"{launches} != {want}")
+            if (len(ps), sum(t.numel() for t in ps)) != (leaves, n_params):
+                raise AssertionError(f"paper_cifar {cname}: tree "
+                                     f"{len(ps)} leaves")
+            finite = all(x == x and abs(x) < float("inf") for x in r.losses)
+            if not finite or not 0.0 <= r.accuracy <= 1.0:
+                raise AssertionError(f"paper_cifar {cname} {m}: losses "
+                                     f"{r.losses}, accuracy {r.accuracy}")
+            for k, v in launches.items():
+                totals[k] += v
+    return totals
+
+
+def check_cifar_card_vs_cpu(torch, dev):
+    """The card against the CPU from the same start (weights, batch,
+    keys), on both configs: the first step's gradient within
+    CIFAR_GRAD_ATOL of each leaf's largest entry; each leaf's qdq of the
+    CPU's gradient bit-equal for the random-rounding schemes (BinGrad-b:
+    values within LEVEL_RTOL, at most FLIP_SHARE of them on the other side
+    of b0); the params after one fp step within lr x that gradient bound
+    of each other, and after one orq-9 optimizer step from each side's
+    qdq of the same gradient within the same bound (a step from each
+    side's own gradient would let a rounding that the gradient's last
+    bits flip move an element by a whole level)."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_quantizer
+    from repro_torch.data import cifar_like_batches
+    from repro_torch.launch import paper_cifar as pc
+    from repro_torch.models.resnet import ResNetConfig, init_resnet
+    from repro_torch.optim import optimizers
+    from repro_torch.utils.pytree import (tree_flatten_with_path, tree_leaves,
+                                          tree_map)
+
+    for cname, (fields, _, _) in CIFAR_CONFIGS.items():
+        cfg = ResNetConfig(**fields)
+        p_cpu = init_resnet(torch.Generator().manual_seed(0), cfg, "cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        b_cpu = next(cifar_like_batches(pc.BATCH, seed=0, device="cpu"))
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        key = prng.fold_in(prng.key(1), 0)
+        l_cpu, g_cpu = pc.loss_and_grads(p_cpu, b_cpu, cfg)
+        l_dev, g_dev = pc.loss_and_grads(p_dev, b_dev, cfg)
+        grad_err = max(
+            float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(g_dev), tree_leaves(g_cpu)))
+        g_max = max(float(t.abs().max()) for t in tree_leaves(g_cpu))
+        row = {"config": cname, "loss_card": float(l_dev),
+               "loss_cpu": float(l_cpu),
+               "grad_max_err_of_leaf_max": grad_err}
+        if not grad_err <= CIFAR_GRAD_ATOL:
+            raise AssertionError(f"paper_cifar {cname}: gradient card vs "
+                                 f"CPU {grad_err} > {CIFAR_GRAD_ATOL}")
+        g_fixed = tree_map(lambda t: t.to(dev), g_cpu)
+        for m in ("terngrad", "orq-3", "orq-9", "bingrad-b"):
+            qz = make_quantizer(m, bucket_size=pc.BUCKET)
+            want = pc.qdq_grads(qz, g_cpu, key)
+            got = pc.qdq_grads(qz, g_fixed, key.to(dev))
+            diff = flips = total = 0
+            for (path, a), b in zip(tree_flatten_with_path(got)[0],
+                                    tree_leaves(want)):
+                a = a.cpu()
+                total += b.numel()
+                if m == "bingrad-b":
+                    tol = LEVEL_RTOL * float(b.abs().max())
+                    flips += int(((a - b).abs() > tol).sum())
+                else:
+                    diff += int((a.view(torch.int32)
+                                 != b.view(torch.int32)).sum())
+            row[f"qdq_{m}"] = ({"flips": flips, "elements": total}
+                               if m == "bingrad-b" else
+                               {"bits_differ": diff, "elements": total})
+            if diff or flips > FLIP_SHARE * total:
+                raise AssertionError(f"paper_cifar {cname} {m} qdq card vs "
+                                     f"CPU: {row[f'qdq_{m}']}")
+        # the first step moves p by lr x (g + wd p): the gradients'
+        # difference bounds the params'
+        tol = pc.LR * CIFAR_GRAD_ATOL * g_max + 1e-6
+        for m in ("fp", "orq-9"):
+            opt, step = pc.make_step(m, cfg)
+            if m == "fp":
+                pc_, _, _ = step(p_cpu, opt.init(p_cpu), b_cpu, key)
+                pd_, _, _ = step(p_dev, opt.init(p_dev), b_dev, key.to(dev))
+            else:     # each side's qdq of one gradient, bit-equal above
+                qz = make_quantizer(m, bucket_size=pc.BUCKET)
+                pc_, _ = optimizers.step(
+                    opt, pc.qdq_grads(qz, g_cpu, key), opt.init(p_cpu),
+                    p_cpu, pc.LR)
+                pd_, _ = optimizers.step(
+                    opt, pc.qdq_grads(qz, g_fixed, key.to(dev)),
+                    opt.init(p_dev), p_dev, pc.LR)
+            err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(tree_leaves(pd_), tree_leaves(pc_)))
+            row[f"step_{m}_params_max_err"] = err
+            row[f"step_{m}_tol"] = tol
+            if not err <= tol:
+                raise AssertionError(f"paper_cifar {cname} {m}: params after "
+                                     f"one step card vs CPU {err} > {tol}")
+        emit("paper_cifar_card_vs_cpu", **row)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the dense GQA and sliding-window architectures, served
+# ---------------------------------------------------------------------------
+
+#: arch -> layers kept: one cycle of its layer pattern
+SERVE_ARCHS = {"qwen1.5-32b": 1, "command-r-plus-104b": 1,
+               "chameleon-34b": 1, "gemma2-9b": 2, "gemma3-27b": 6}
+ARCH_BATCH, ARCH_GEN, ARCH_PAGE, ARCH_CHUNK = 2, 4, 64, 512
+ARCH_TRAIN_ARGS = ["--smoke", "--quant", "orq-9", "--steps", "1",
+                   "--batch", "2", "--seq", "128", "--bucket", "512"]
+
+
+def _arch_prompt_len(cfg) -> int:
+    """64 tokens past the window (so a local layer's mask binds), or 128."""
+    return (cfg.window or 64) + 64
+
+
+def _record(module, name, calls, keep):
+    """Wrap ``module.name`` so that calls ``keep(args)`` accepts are
+    recorded; returns the original to restore."""
+    orig = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        if keep(args):
+            calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, rec)
+    return orig
+
+
+def _hold_arch_attend(torch, arch, calls, smi):
+    """The recorded ``decode_attend`` calls of one decode step (one a
+    layer), kernel against its plain version on the same inputs within
+    ATOL_ATTEND; the first and the last layer's timed (local and global
+    on the windowed archs)."""
+    from repro_torch.kernels import fused_kv as fk
+
+    out = []
+    for li, (args, kw) in enumerate(calls):
+        args = tuple(a.clone() for a in args)
+        want = fk.decode_attend_plain(*args, **kw)
+        got = fk.decode_attend_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        q, kw_, klv, vw, vlv, mask = args
+        B, T, H, hd = q.shape
+        row = dict(arch=arch, layer=li, B=B, T=T, H=H, KV=kw["kv_heads"],
+                   hd=hd, C=kw_.shape[1], softcap=kw["softcap"],
+                   admitted_share=float(mask.float().mean()),
+                   max_abs_err=err, finite=bool(torch.isfinite(got).all()))
+        if li in (0, len(calls) - 1):
+            kern = lambda: fk.decode_attend_cuda(*args, **kw)
+            plain = lambda: fk.decode_attend_plain(*args, **kw)
+            moved, ops = attend_work(torch, q, kw_, klv, mask, got)
+            b_ms, b_by = bound(moved, ops)
+            row.update(ms=time_ms(kern), plain_ms=time_ms(plain),
+                       device_ms=device_ms(kern,
+                                           floor_ms=hbm_floor_ms(moved)),
+                       plain_device_ms=device_ms(plain), bytes=moved,
+                       bound_ms=b_ms, bound_by=b_by, device=smi)
+        emit("kernel", kernel="decode_attend", case=f"{arch}/layer{li}",
+             atol=ATOL_ATTEND, **row)
+        if not err <= ATOL_ATTEND or not row["finite"]:
+            raise AssertionError(f"decode_attend {arch} layer {li}: max abs "
+                                 f"err {err} > {ATOL_ATTEND}")
+        out.append(row)
+    return out
+
+
+def _hold_arch_encode(torch, arch, calls, smi):
+    """The first recorded KV encode (K and V rows of one decode step of
+    one layer): ``encode_fused`` against its plain version on the card,
+    bit for bit, timed."""
+    from repro_torch.core.comm import wire
+    from repro_torch.kernels import fused_encode as fe
+
+    (qz, k_rows, v_rows, rbits), _ = calls[0]
+    v = torch.cat([k_rows, v_rows], dim=0).to(torch.float32).contiguous()
+    levels = wire._fit(qz, v, None)
+    lim = fe.clip_limit(v, None, qz.clip_c)
+    args = (v, levels, rbits, None, lim)
+    kw = dict(bits=qz.wire_bits_per_element, mode="rr")
+    got = fe.encode_fused_cuda(*args, **kw)
+    want = fe.encode_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bad = _mismatch(torch, got, want)
+    kern = lambda: fe.encode_fused_cuda(*args, **kw)
+    plain = lambda: fe.encode_fused_plain(*args, **kw)
+    moved = nbytes(v, levels, rbits, got)
+    b_ms, b_by = bound(moved, 0.0)
+    row = dict(arch=arch, rows=v.shape[0], d=v.shape[1], words_differ=bad,
+               ms=time_ms(kern), plain_ms=time_ms(plain),
+               device_ms=device_ms(kern, floor_ms=hbm_floor_ms(moved)),
+               bytes=moved, bound_ms=b_ms, bound_by=b_by, device=smi)
+    emit("kernel", kernel="encode_fused", case=f"{arch}/kv_rows", **row)
+    if bad:
+        raise AssertionError(f"encode_fused {arch}: {bad} words differ")
+    return row
+
+
+def run_serve_archs(torch, dev):
+    """Each new architecture at full width, its depth cut to one cycle of
+    its layer pattern, served on the paged engine with orq-9 pages: two
+    prompts 64 tokens past the window (or of 128), then ARCH_GEN greedy
+    tokens. Counters zeroed just before: the KV encode and
+    ``decode_attend`` read forward calls x layers. Then every decode-step
+    ``decode_attend`` call of the run and its first KV encode held against
+    the plain versions; then one ``--smoke`` training step of the arch
+    through the launcher."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.utils.pytree import tree_leaves
+
+    smi = nvidia_smi()
+    totals = {k: 0 for k in _counters()}
+    times = {}
+    for arch, layers in SERVE_ARCHS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        model = LM(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        params = map_tree(lambda t: t.to(torch.bfloat16), params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        plen = _arch_prompt_len(cfg)
+        pages = -(-(plen + ARCH_GEN) // ARCH_PAGE)
+        scfg = ServeConfig(kv_quant="orq-9", page_size=ARCH_PAGE,
+                           max_batch=ARCH_BATCH, max_pages_per_seq=pages,
+                           prefill_chunk=ARCH_CHUNK)
+        eng = Engine(model, params, scfg, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, plen),
+                                generator=torch.Generator().manual_seed(1))
+        attend_calls, encode_calls = [], []
+        decode_shape = lambda a: a[0].shape[:2] == (ARCH_BATCH, 1)
+        o_att = _record(ops, "decode_attend", attend_calls, decode_shape)
+        o_enc = _record(engine_mod, "append_kv", encode_calls,
+                        lambda a: a[1].shape[0] == ARCH_BATCH)
+        try:
+            _zero_counters()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p.numpy().astype("int32"), max_new=ARCH_GEN)
+                    for p in prompts]
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counters()
+        finally:
+            ops.decode_attend, engine_mod.append_kv = o_att, o_enc
+        toks = [res[r].generated for r in rids]
+        expect = eng.forward_calls * layers
+        want = {k: (expect if k in ("encode_fused", "decode_attend") else 0)
+                for k in launches}
+        row = dict(arch=arch, layers=layers, layers_full=full.num_layers,
+                   reduced=f"num_layers {full.num_layers} -> {layers} (one "
+                           f"cycle of {list(full.layer_pattern)})",
+                   n_params=n_params, bf16_weight_bytes=2 * n_params,
+                   d_model=cfg.d_model, heads=cfg.num_heads,
+                   kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+                   window=cfg.window, attn_softcap=cfg.attn_softcap,
+                   prompt_len=plen, context=pages * ARCH_PAGE,
+                   init_s=init_s, wall_s=wall,
+                   prefill_s=eng.prefill_time,
+                   prefill_tok_s=eng.prefill_tokens / max(eng.prefill_time,
+                                                          1e-9),
+                   decode_step_ms=[t * 1e3 for t in eng.decode_times],
+                   tokens=toks, forward_calls=eng.forward_calls,
+                   launches=launches, expected_launches=want,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=smi)
+        emit("serve_archs", **row)
+        if launches != want:
+            raise AssertionError(f"serve {arch}: launches {launches} != "
+                                 f"{want}")
+        if (any(len(t) != ARCH_GEN for t in toks)
+                or not all(0 <= x < cfg.vocab_size for t in toks for x in t)):
+            raise AssertionError(f"serve {arch}: bad tokens {toks}")
+        if len(attend_calls) < layers or not encode_calls:
+            raise AssertionError(f"serve {arch}: no decode-step calls "
+                                 f"recorded")
+        for k, v in launches.items():
+            totals[k] += v
+        del eng, params
+        torch.cuda.empty_cache()
+        att = _hold_arch_attend(torch, arch, attend_calls[:layers], smi)
+        enc = _hold_arch_encode(torch, arch, encode_calls, smi)
+        times[arch] = {"decode_attend": [r for r in att if "ms" in r],
+                       "encode_fused": enc}
+        if att[0]["softcap"] != cfg.attn_softcap or (
+                att[0]["H"], att[0]["KV"], att[0]["hd"]) != (
+                cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim):
+            raise AssertionError(f"serve {arch}: decode_attend saw "
+                                 f"{att[0]}")
+        del attend_calls, encode_calls
+        r = launcher.train(["--arch", arch, *ARCH_TRAIN_ARGS])
+        losses = [h["loss"] for h in r["history"]]
+        emit("serve_archs_train", arch=arch, args=" ".join(ARCH_TRAIN_ARGS),
+             losses=losses, step_s=r["step_s"], n_params=r["n_params"],
+             params_sha256=r["params_sha256"], device=smi)
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"train {arch} --smoke: losses {losses}")
+    return totals, times
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -3055,6 +3454,11 @@ def main() -> int:
     lap("train_local")
     run_dense_serve(torch)
     lap("serve_dense")
+    cifar_launches = run_paper_cifar(torch, dev)
+    check_cifar_card_vs_cpu(torch, dev)
+    lap("paper_cifar")
+    arch_launches, arch_times = run_serve_archs(torch, dev)
+    lap("serve_archs")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -3067,7 +3471,9 @@ def main() -> int:
              "train_fsdp": fsdp_launches,
              "checkpoint": ckpt_launches,
              "train_bit_schedule": sched_launches,
-             "train_async": async_launches}
+             "train_async": async_launches,
+             "paper_cifar": cifar_launches,
+             "serve_archs": arch_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")
@@ -3090,6 +3496,16 @@ def main() -> int:
     def fsdp(name):
         return {"fsdp_shapes": fsdp_times[name]}
 
+    def archs(name):
+        keys = ("layer", "T", "H", "KV", "hd", "C", "softcap", "rows", "d",
+                "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")
+        pick = lambda r: {k: r[k] for k in keys if k in r}   # noqa: E731
+        if name == "decode_attend":
+            return {"arch_shapes": {a: [pick(r) for r in t[name]]
+                                    for a, t in arch_times.items()}}
+        return {"arch_shapes": {a: pick(t[name])
+                                for a, t in arch_times.items()}}
+
     e, a = enc["decode_rows16"], att["decode_b8"]
     kernels = [
         row("encode_fused", "src/repro_torch/csrc/encode_fused.cu",
@@ -3099,12 +3515,13 @@ def main() -> int:
             train_shape_bits3=shape_of(enc["train_main_shape_bits3"]),
             train_shape_bits2=shape_of(enc["train_main_shape_bits2"]),
             train_shape_bits5=shape_of(enc["train_main_shape_bits5"]),
-            **fsdp("encode_fused")),
+            **fsdp("encode_fused"), **archs("encode_fused")),
         row("decode_attend", "src/repro_torch/csrc/decode_attend.cu",
             "src/repro/kernels/fused_kv.py:70", a,
             prefill_t64=shape_of(att["prefill_t64"]),
             serve_positions=shape_of(att["serve_positions"]),
-            hd16=shape_of(att["hd16"]), hd256=shape_of(att["hd256"])),
+            hd16=shape_of(att["hd16"]), hd256=shape_of(att["hd256"]),
+            **archs("decode_attend")),
         row("qdq_fused", "src/repro_torch/csrc/encode_fused.cu",
             "src/repro/kernels/fused_encode.py:283",
             qdq["train_main_shape"],

@@ -116,6 +116,11 @@ class ModelConfig:
 # (``src/repro/configs/base.py``) lists every architecture.
 _REGISTRY = {
     "lm-100m": "repro_torch.configs.lm_100m",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
 }
 
 

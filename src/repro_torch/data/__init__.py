@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.data.synthetic import SyntheticLM, cifar_like_batches
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "cifar_like_batches"]

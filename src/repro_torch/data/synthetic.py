@@ -1,8 +1,10 @@
-"""Deterministic synthetic token stream (the reference's
-``data/synthetic.py``: ``SyntheticLM``), bit-equal to it.
+"""Deterministic synthetic streams (the reference's ``data/synthetic.py``),
+bit-equal to it: the token stream ``SyntheticLM`` and the image stream
+``cifar_like_batches``.
 
-A fixed random Markov chain over the vocabulary (order 1, with a
-long-range copy channel), generated counter-based from (seed, step) with
+The token stream is a fixed random Markov chain over the vocabulary
+(order 1, with a long-range copy channel), generated counter-based from
+(seed, step) with
 the reference's threefry keys (``core/prng``): the stream is
 reproducible, shardable, and has real structure, so the training loss
 falls measurably below ln(V).
@@ -15,6 +17,7 @@ recurrence runs as a loop over time.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -64,3 +67,26 @@ class SyntheticLM:
             state = tok % self.n_states
             toks.append(tok)
         return {"tokens": torch.stack(toks, dim=1)}
+
+
+def cifar_like_batches(batch_size: int, seed: int = 0, num_classes: int = 10,
+                       device=None) -> Iterator[dict]:
+    """Synthetic 32x32x3 image-classification stream standing in for
+    CIFAR (class-conditional Gaussian blobs plus noise), drawn with
+    numpy's ``RandomState`` exactly as the reference draws it: the
+    prototypes from ``seed``, each step's labels then noise from
+    ``seed * 100003 + step``. Yields {images (B, 32, 32, 3) float32 NHWC,
+    labels (B,) int32} on ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    prototypes = rng.randn(num_classes, 32, 32, 3).astype(np.float32)
+    step = 0
+    while True:
+        r = np.random.RandomState(seed * 100003 + step)
+        labels = r.randint(0, num_classes, size=(batch_size,))
+        noise = r.randn(batch_size, 32, 32, 3).astype(np.float32)
+        images = prototypes[labels] * 0.7 + noise
+        yield {"images": torch.from_numpy(images).to(device),
+               "labels": torch.from_numpy(labels.astype(np.int32)).to(
+                   device)}
+        step += 1

@@ -1,5 +1,6 @@
 """Attention (the reference's ``models/attention.py``): the spec, its
-scale, the chunked online-softmax attention of the training forward, and
+scale, the chunked online-softmax attention of the training forward (full
+or sliding-window, the latter as the reference's banded scan), and
 the cache attention with a full per-query mask, used by the serving
 engine's bf16 escape hatch and by the dense ring-buffer decode
 (``decode_attention``). Plain PyTorch: the reference computes all of it
@@ -64,16 +65,24 @@ def chunked_attention(q, k, v, spec: AttnSpec):
     query chunks outside, key/value chunks inside with a running (max,
     sum, acc) in float32, so no (S, S) score matrix exists. Rope rotates
     each position independently, so it is applied to the whole q and k
-    once instead of per chunk."""
-    if spec.window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported to repro_torch yet "
-            "(see ROADMAP.md)")
+    once instead of per chunk.
+
+    A causal sliding-window spec takes the reference's banded scan: each
+    query chunk visits at most ceil(window / kv_chunk) + 1 KV chunks,
+    walking backwards from the diagonal, so work and memory scale with
+    S·window, not S²; it needs q_chunk == kv_chunk, as the reference
+    asserts. The reference's clamped duplicate visits and the chunks above
+    the diagonal are fully masked, and a fully masked chunk leaves (max,
+    sum, acc) exactly as they were, so they are skipped here."""
     B, S, H, hd = q.shape
     pos = torch.arange(S, device=q.device)
     q = apply_rope(q, pos, spec.rope_theta)
     k = apply_rope(k, pos, spec.rope_theta)
     qc, kc = min(spec.q_chunk, S), min(spec.kv_chunk, S)
+    banded = spec.window is not None and spec.causal
+    if banded and qc != kc:
+        raise ValueError("banded sliding-window attention needs equal "
+                         f"q/kv chunk sizes (got {qc}, {kc})")
     outs = []
     for q0 in range(0, S, qc):
         qb = q[:, q0:q0 + qc]
@@ -82,7 +91,13 @@ def chunked_attention(q, k, v, spec: AttnSpec):
                        device=q.device)
         l = torch.zeros((B, H, n), dtype=torch.float32, device=q.device)
         o = torch.zeros((B, H, n, hd), dtype=torch.float32, device=q.device)
-        for k0 in range(0, S, kc):
+        if banded:                           # the diagonal, then backwards
+            w_chunks = -(-spec.window // kc)
+            k_starts = [q0 - r * kc for r in range(w_chunks + 1)
+                        if q0 - r * kc >= 0]
+        else:
+            k_starts = range(0, S, kc)
+        for k0 in k_starts:
             if spec.causal and k0 > q0 + n - 1:
                 break                        # every score masked: no-op
             kb, vb = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
@@ -92,6 +107,9 @@ def chunked_attention(q, k, v, spec: AttnSpec):
             else:
                 mask = torch.ones((n, kb.shape[1]), dtype=torch.bool,
                                   device=q.device)
+            if spec.window is not None:
+                mask = mask & (pos[q0:q0 + n, None] - pos[None, k0:k0 + kc]
+                               < spec.window)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)

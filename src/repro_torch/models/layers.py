@@ -52,7 +52,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-_ACTS = {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}
+# jax.nn.gelu is the tanh approximation by default
+_ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+         "relu": F.relu}
 
 
 def gated_mlp(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
@@ -69,15 +71,17 @@ def gated_mlp(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
 
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
                in_axis: int = 0) -> torch.Tensor:
-    """``gen=None`` gives a ``meta`` tensor: the shape, no values."""
+    """Drawn on ``gen``'s device; ``gen=None`` gives a ``meta`` tensor:
+    the shape, no values."""
     if gen is None:
         return torch.empty(tuple(shape), device="meta")
     fan_in = shape[in_axis]
-    return torch.randn(tuple(shape), generator=gen) / math.sqrt(fan_in)
+    return torch.randn(tuple(shape), generator=gen,
+                       device=gen.device) / math.sqrt(fan_in)
 
 
 def embed_init(gen: Optional[torch.Generator],
                shape: Sequence[int]) -> torch.Tensor:
     if gen is None:
         return torch.empty(tuple(shape), device="meta")
-    return torch.randn(tuple(shape), generator=gen) * 0.02
+    return torch.randn(tuple(shape), generator=gen, device=gen.device) * 0.02

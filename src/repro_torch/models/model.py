@@ -106,9 +106,10 @@ class LM:
 
     def init(self, gen: torch.Generator, *, device=None) -> dict:
         """Float32 params in the reference's tree layout, drawn from
-        ``gen`` on the CPU (so a seed gives the same weights on any
-        device), then moved to ``device``: the card unless the caller
-        passes ``device="cpu"``."""
+        ``gen`` on its device (a CPU generator gives the same weights
+        whatever ``device`` is), then moved to ``device``: the card unless
+        the caller passes ``device="cpu"``. A generator on the card draws
+        full-width weights there, without a pass through host memory."""
         device = resolve_device(device)
         return map_tree(lambda t: t.to(device), self._build(gen))
 

@@ -36,6 +36,7 @@ from repro.core.policy import QuantPolicy as JPolicy
 from repro.models.model import LM as JLM
 from repro.train import step as jstep
 from repro.train.state import OuterState as JOuter
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POLICY = "norm|bias=fp,default=orq-9"

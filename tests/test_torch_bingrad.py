@@ -45,6 +45,7 @@ from repro_torch.core.quantizers import Quantizer
 from repro_torch.kernels import bingrad, fused_bingrad, fused_encode, ops, ref
 from repro_torch.models import LM
 from repro_torch.serve.kv_cache import KVQuantSpec, token_bytes_ratio
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

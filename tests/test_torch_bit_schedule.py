@@ -39,6 +39,7 @@ from repro_torch.core.comm import exchange, wire
 from repro_torch.core.comm.fsdp_exchange import FsdpExchange
 from repro_torch.models import LM
 from repro_torch.utils.pytree import tree_leaves
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STATS_RTOL = 1e-5

@@ -43,6 +43,7 @@ from repro_torch.optim.schedule import constant_lr
 from repro_torch.train import TrainConfig, init_state, make_train_step
 from repro_torch.train.step import ScheduledTrainStep
 from repro_torch.utils.pytree import tree_leaves, tree_map
+from torch_test_env import port_test_env  # noqa: F401
 
 LR = 0.05
 STATS_RTOL = 1e-5

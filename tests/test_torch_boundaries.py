@@ -7,12 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import MLAParams, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import LM
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.kv_cache import KVQuantSpec, init_kv_pools
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -32,6 +33,29 @@ def _imports(path: pathlib.Path):
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     assert (ROOT / "chip_smoke.py").exists()
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("launch/paper_cifar.py", "models/resnet.py",
+                "configs/qwen15_32b.py", "configs/command_r_plus_104b.py",
+                "configs/chameleon_34b.py", "configs/gemma2_9b.py",
+                "configs/gemma3_27b.py"):
+        assert port / rel in PORT_FILES, rel
+
+
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_launchers_refuse_unported_arch_by_name(launcher, capsys):
+    """``--arch`` takes only the registered (ported) configs; another
+    reference arch is refused while parsing, by name."""
+    from repro_torch.configs.base import list_archs
+    from repro_torch.launch import train as train_launcher
+
+    assert "mixtral-8x22b" not in list_archs()
+    assert {"gemma2-9b", "qwen1.5-32b"} <= set(list_archs())
+    run = {"train": train_launcher.train,
+           "serve": serve_launcher.serve}[launcher]
+    with pytest.raises(SystemExit) as e:
+        run(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "mixtral-8x22b" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -99,7 +123,8 @@ def test_launcher_needs_kv_quant():
 
 
 @pytest.mark.parametrize("change", [{"norm": "ln"}, {"moe": True},
-                                    {"kind": "mamba"}, {"cross_attn": True}])
+                                    {"kind": "mamba"}, {"cross_attn": True},
+                                    {"kind": "rwkv"}, {"mla": MLAParams()}])
 def test_unported_layer_kinds_point_to_the_roadmap(change):
     """A layer the port does not run is refused by name, pointing to
     ROADMAP.md as the other refusals do."""
@@ -111,7 +136,7 @@ def test_unported_layer_kinds_point_to_the_roadmap(change):
     cfg = get_smoke_config("lm-100m")
     spec = build_layer_specs(cfg)[0]
     check_dense_gqa(cfg, spec)
-    if "norm" in change:
+    if "norm" in change or "mla" in change:
         cfg = dataclasses.replace(cfg, **change)
     else:
         spec = dataclasses.replace(spec, **change)

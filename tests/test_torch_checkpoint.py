@@ -40,6 +40,7 @@ from repro_torch.models import LM
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train.state import TrainState
 from repro_torch.utils.pytree import tree_leaves
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

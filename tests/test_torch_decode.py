@@ -22,6 +22,7 @@ from repro_torch.core import encode, floats, prng
 from repro_torch.core.api import make_quantizer
 from repro_torch.core.comm import wire
 from repro_torch.kernels import fused_decode, fused_encode, ops, ref
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

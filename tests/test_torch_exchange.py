@@ -35,6 +35,7 @@ from repro_torch.core.comm import collectives, exchange
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import LM
 from repro_torch.utils.pytree import tree_leaves
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 4

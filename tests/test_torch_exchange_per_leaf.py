@@ -34,6 +34,7 @@ from repro.core.policy import QuantPolicy as JPolicy
 from repro_torch.core import prng
 from repro_torch.core.comm import exchange
 from repro_torch.core.policy import QuantPolicy
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 4

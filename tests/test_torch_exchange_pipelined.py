@@ -39,6 +39,7 @@ from repro_torch.core.api import make_quantizer
 from repro_torch.core.comm import exchange
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import LM
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 4

@@ -21,6 +21,7 @@ import textwrap
 
 import numpy as np
 import pytest
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 4

@@ -40,6 +40,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import LM
 from repro_torch.train.step import plan_sharding_shapes
 from repro_torch.utils import sharding
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 4

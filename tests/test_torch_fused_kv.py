@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels.fused_kv import append_kv as jappend_kv
 from repro_torch.core.api import make_quantizer
 from repro_torch.kernels import fused_encode, fused_kv, ops
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -30,6 +30,7 @@ from repro.core.api import QuantConfig as JQuantConfig
 from repro.core.api import make_quantizer as jmake_quantizer
 from repro_torch.core import levels
 from repro_torch.core.api import QuantConfig, all_methods, make_quantizer
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -41,6 +41,7 @@ from repro_torch.core.api import all_methods, make_quantizer
 from repro_torch.core.comm import wire
 from repro_torch.core.quantizers import Quantizer
 from repro_torch.kernels import bitpack, dequant_avg, ops, quant_rr
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -13,6 +13,7 @@ from repro_torch.core import prng
 from repro_torch.core import rounding
 from repro_torch.serve.engine import _layer_salt
 from repro_torch.serve.kv_cache import token_rbits
+from torch_test_env import port_test_env  # noqa: F401
 
 SEEDS = [0, 1, 42, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (3, 5), (2, 3, 4), (768,)]

@@ -24,6 +24,7 @@ from repro_torch.core import levels
 from repro_torch.core.api import all_methods, make_quantizer
 from repro_torch.core.comm import wire
 from repro_torch.kernels import fused_encode, ops, ref
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -42,6 +42,7 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.models.model import map_tree
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.kv_cache import KVQuantSpec, token_bytes_ratio
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -41,6 +41,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import encode
 from repro_torch.models import LM
 from repro_torch.serve import Engine, ServeConfig
+from torch_test_env import port_test_env  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -24,6 +24,7 @@ from repro.core.api import all_methods as jall_methods
 from repro.core.api import make_quantizer as jmake_quantizer
 from repro_torch.core import prng, theory
 from repro_torch.core.api import all_methods, make_quantizer
+from torch_test_env import port_test_env  # noqa: F401
 
 SCHEMES = all_methods()
 BUCKET = 512

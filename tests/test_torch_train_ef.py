@@ -57,6 +57,7 @@ from repro_torch.models import LM
 from repro_torch.optim.schedule import constant_lr
 from repro_torch.train import TrainConfig, make_train_step
 from repro_torch.utils.pytree import tree_leaves
+from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 0.05

@@ -47,6 +47,7 @@ from repro_torch.optim.schedule import constant_lr
 from repro_torch.train import TrainConfig, make_train_step
 from repro_torch.train.step import _FUSED_SALT, exchange_engine
 from repro_torch.utils.pytree import tree_leaves
+from torch_test_env import port_test_env  # noqa: F401
 
 LR = 0.05
 RTOL = 1e-5
