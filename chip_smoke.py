@@ -61,7 +61,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. check    the smoke-size engine on the card against the same engine on
             the CPU (the plain versions, which the CPU tests hold against
             the JAX reference): logits within ATOL_LOGITS.
-6. profile  device time by kernel and by category over four decode steps
+6. profile  device time by kernel and by category over two decode steps
             (torch.profiler), beside the same steps' wall time without
             the profiler; busy share = device time / unprofiled wall.
    Phases 4-6 run again with BinGrad-b KV pages (``encode_bingrad_fused``,
@@ -75,7 +75,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             just before and must read encode 10, mean 5, each 5, qdq 2
             just after; losses finite; wire bytes per worker 140,042,960;
             replicas in sync; params sha256 equal to ORQ9_SHA256. Then
-            device time by category over two steps
+            device time by category over one EF step
             (torch.profiler), beside their unprofiled wall. Then BinGrad-b
             the same way (encode_bingrad_fused 12, mean 5, each 5, qdq 2;
             34,878,624 wire bytes; its params sha256 equal to PR 20's),
@@ -103,9 +103,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             BinGrad-b, one step then one with error feedback: 48
             collective launches a step, 140,043,800 / 34,878,832 wire
             bytes, 24 encodes, 12 decodes of each kind and 12 qdq a step.
-            Then the per-leaf exchange and its EF residuals of four leaves
-            of the full-width gradient (final_norm, wq, norm1, norm2) on
-            the 1/64 grid, card (NCCL) against CPU (gloo).
+            Then the per-leaf exchange and its EF residuals of five leaves
+            of the full-width gradient (final_norm, wq, norm1, norm2 and
+            the FFN's wo) on the 1/64 grid, card (NCCL) against CPU
+            (gloo).
 12. theory  ``scheme_mse`` of the full-width gradient for every scheme,
             timed on the card; its first 1024 buckets on the card and on
             the CPU within THEORY_RTOL.
@@ -134,12 +135,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             launches a step; wire bytes 70,021,480 / 17,439,312; losses
             finite; step p50, each run's own peak memory (above what was
             allocated at its start) and params sha256 printed. Then
-            device time by category over two fsdp orq-9 EF steps;
+            device time by category over one fsdp orq-9 EF step;
             ``--hierarchy two_level`` on this world of one: the flat
             run's sha256 (encode 3, mean 3); one per-leaf fsdp step: 222
             launches, 111 encodes and 111 mean decodes. After phase 11's
             check: the fsdp exchange and its EF residuals of phase 11's
-            four full-width leaves on the 1/64 grid, card (NCCL) against
+            five full-width leaves on the 1/64 grid, card (NCCL) against
             CPU (gloo), bit-equal.
 16. checkpoint  ``--smoke`` fsdp orq-9 with error feedback: 4 steps
             writing the state after step 2, then ``--resume`` of it: the
@@ -171,7 +172,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (phase 11's and the FFN's wo) from a state on the grid, card
             (NCCL) against CPU (gloo), bit-equal.
 19. paper_cifar  ``repro_torch.launch.paper_cifar.train`` on the card,
-            4 steps of every method of the reference example (fp,
+            3 steps of every method of the reference example (fp,
             terngrad, orq-3, orq-9, BinGrad-b) on the example's ResNet
             (width 16, one block a stage: 25 leaves, 77,850 params) and on
             ResNet-20 (61 leaves, 272,282 params): counters zeroed just
@@ -189,13 +190,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             gemma2-9b and gemma3-27b at full width with the depth cut to
             one cycle of the layer pattern (1, 1, 1, 2, 6 layers; bf16
             weights drawn on the card), the paged engine with orq-9 pages:
-            two prompts 64 tokens past the window (or of 128), 4 greedy
+            two prompts 64 tokens past the window (or of 128), 3 greedy
             tokens; encode and decode_attend launches = forward calls x
             layers. Every ``decode_attend`` call of one decode step held
             against its plain version within ATOL_ATTEND (hd 128 / 256, GQA
             ratios 1-12, softcap 50, the window mask) and the KV encode bit
             for bit, both timed; then one ``--smoke`` orq-9 training step
             of each through the launcher.
+21. moe_mla  mixtral-8x22b (one MoE layer) and deepseek-v2-236b (its
+            dense first layer, then one MLA + MoE layer of 160 routed and
+            2 shared experts) at full width, weights drawn on the card,
+            each peak reckoned before the draw: the serving launcher's
+            dense path (chunked prefill for mixtral, token by token for
+            MLA) of 8 prompts of 64 tokens, then 8 decode steps; prefill
+            seconds, decode p50 and tok/s, own peak, the MoE capacity and
+            dropped share at prefill and at decode, the cache bytes a
+            token and layer (MLA: (kv_lora + rope) x 2 = 1152 against 2 x
+            H x hd x 2); every counter 0 (plain PyTorch, as in the
+            reference). Card against CPU at the smoke sizes: ``moe_ffn``
+            in f32 with drops (routing equal, y within MOE_ATOL_F32), one
+            MLA decode step in f32, a bf16 forward (routing agreement;
+            logits within ATOL_BF16 routed as the CPU). Then ``--smoke``
+            training of each, orq-9 and BinGrad-b, 2 steps and 1 with
+            error feedback on a world of one: the fused path's launches
+            (encode 6 / BinGrad-b 7, mean 3, each 3, qdq 1), 4
+            collectives a step, aux > 0, ``policy_stats``' wire bytes;
+            every kernel call of the EF step recorded at its dispatcher
+            and held against its plain version on the same inputs (buckets
+            of 512 with a ragged last row), by phase 3's rules.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -645,8 +667,10 @@ def _rand_words(torch, g, shape):
 
 
 def _mismatch(torch, got, want) -> int:
-    """Elements that differ by value (-0.0 == 0.0, as torch.equal)."""
-    return int((got.cpu() != want.cpu()).sum())
+    """Elements that differ by value (-0.0 == 0.0, as torch.equal),
+    compared on ``got``'s device (a full-width buffer is not copied to the
+    host)."""
+    return int((got != want.to(got.device)).sum())
 
 
 def check_decode(torch, dev):
@@ -1031,19 +1055,8 @@ SERVE_SCHEMES = {"orq-9": ("encode_fused", 840, 0.2734),
 
 def _counters():
     """Every kernel's launch counter (the CUDA wrappers)."""
-    from repro_torch.kernels import (bingrad, bitpack, dequant_avg,
-                                     fused_bingrad, fused_decode,
-                                     fused_encode, fused_kv, quant_rr)
-    return {"encode_fused": fused_encode.encode_fused_cuda,
-            "decode_attend": fused_kv.decode_attend_cuda,
-            "qdq_fused": fused_encode.qdq_fused_cuda,
-            "decode_fused_mean": fused_decode.decode_fused_mean_cuda,
-            "decode_fused_each": fused_decode.decode_fused_each_cuda,
-            "encode_bingrad_fused": fused_bingrad.encode_bingrad_fused_cuda,
-            "bingrad_pass": bingrad.bingrad_pass_cuda,
-            "quant_rr": quant_rr.quant_rr_cuda, "pack": bitpack.pack_cuda,
-            "unpack": bitpack.unpack_cuda,
-            "dequant_avg": dequant_avg.dequant_avg_cuda}
+    from repro_torch.kernels.ops import launch_counters
+    return launch_counters()
 
 
 def _zero_counters():
@@ -1192,8 +1205,16 @@ def check_against_cpu(torch, dev, scheme="orq-9"):
         raise AssertionError(f"card and CPU logits differ by {max(errs)}")
 
 
+#: decode steps in a serve profile and EF steps in a train profile: the
+#: orq-9 serve profile's ~93,000 launches take the profiler about 7 s a
+#: step to process
+PROFILE_DECODE_STEPS = 2
+PROFILE_TRAIN_STEPS = 1
+
+
 def profile_decode(torch, eng):
-    """Device time by op over four decode steps of the main-path engine."""
+    """Device time by op over PROFILE_DECODE_STEPS decode steps of the
+    main-path engine."""
     from torch.profiler import ProfilerActivity, profile
 
     for b in range(eng.cfg.max_batch):
@@ -1202,14 +1223,14 @@ def profile_decode(torch, eng):
         eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(4):
+    for _ in range(PROFILE_DECODE_STEPS):
         eng.step()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
-        for _ in range(4):
+        for _ in range(PROFILE_DECODE_STEPS):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1217,7 +1238,8 @@ def profile_decode(torch, eng):
     rows = _kernel_events(prof)
     total = sum(r[0] for r in rows)
     by_cat = _by_category(rows)
-    emit("profile", scheme=eng.cfg.kv_quant, window="4 decode steps, batch 8",
+    emit("profile", scheme=eng.cfg.kv_quant,
+         window=f"{PROFILE_DECODE_STEPS} decode steps, batch 8",
          wall_ms_unprofiled=plain_wall * 1e3, wall_ms_profiled=wall * 1e3,
          device_us=total, kernel_launches=sum(r[2] for r in rows),
          device_busy_share=total / 1e3 / (plain_wall * 1e3),
@@ -1377,7 +1399,8 @@ def run_other_schemes(torch):
 
 
 def profile_train(torch, state, quant="orq-9", mode="replicated"):
-    """Device time by category over two ``quant`` + EF steps of ``mode``
+    """Device time by category over PROFILE_TRAIN_STEPS ``quant`` + EF
+    steps of ``mode``
     (``state`` is a state of that mode), beside the same steps' wall time
     without the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -1395,8 +1418,12 @@ def profile_train(torch, state, quant="orq-9", mode="replicated"):
         LM(cfg), TrainConfig(policy=QuantPolicy.parse(quant), mode=mode,
                              error_feedback=True), constant_lr(0.05))
     data = SyntheticLM(cfg.vocab_size, 128, 8, seed=0)
-    batches = [data.batch(i, device="cuda") for i in range(2)]
+    batches = [data.batch(i, device="cuda")
+               for i in range(PROFILE_TRAIN_STEPS)]
     key = prng.key(0, device="cuda")
+    # the fresh step function's first call (its set-up) outside both
+    # windows, so the busy share reads warm steps only
+    state, _ = step_fn(state, batches[0], key)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in batches:
@@ -1413,7 +1440,8 @@ def profile_train(torch, state, quant="orq-9", mode="replicated"):
     total = sum(r[0] for r in rows)
     by_cat = _by_category(rows)
     emit("train_profile", scheme=quant, mode=mode,
-         window=f"2 steps, lm-100m {mode} {quant} + EF, batch 8 x 128",
+         window=f"{PROFILE_TRAIN_STEPS} step(s), lm-100m {mode} {quant} "
+                f"+ EF, batch 8 x 128",
          wall_ms_unprofiled=plain_wall * 1e3, device_us=total,
          kernel_launches=sum(r[2] for r in rows),
          device_busy_share=total / 1e3 / (plain_wall * 1e3),
@@ -1533,7 +1561,7 @@ def _hold(torch, name, case, got, want, **row):
     """A multi-pass kernel against its plain version: bit-equal, floats
     as bit patterns (so the sign of a zero counts)."""
     torch.cuda.synchronize()
-    a, b = got.cpu(), want.cpu()
+    a, b = got, want.to(got.device)
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     mism = int((a != b).sum()) if a.shape == b.shape else -1
@@ -1986,9 +2014,8 @@ def _subtree(tree, ffn_wo=False):
 
 def check_per_leaf_card_vs_cpu(torch, dev, grads):
     """The per-leaf exchange and its EF residuals (``LeafExchange``) of
-    four leaves of the full-width gradient (final_norm, wq, norm1, norm2:
-    7.1 M values; the FFN's wo, phase 18's fifth, left out since PR 20 to
-    keep the script within its time), each put on the grid of
+    five leaves of the full-width gradient (final_norm, wq, norm1, norm2
+    and the FFN's wo: 26.0 M values), each put on the grid of
     multiples of 1/64 of its max |g| (so every fit's sums are exact in any
     order), on the card (NCCL) and on the CPU (a gloo group of the same
     world): bit-equal for orq-9; for BinGrad-b the means within 2^-20 of
@@ -2003,8 +2030,8 @@ def check_per_leaf_card_vs_cpu(torch, dev, grads):
     from repro_torch.models import LM
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
-    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads))
-    sub = _on_grid(torch, _subtree(grads))
+    paths = _subtree(LM(get_config("lm-100m")).param_paths(grads), True)
+    sub = _on_grid(torch, _subtree(grads, True))
     gloo = dist.new_group(ranks=[0], backend="gloo")
     failed = []
     for scheme in ("orq-9", "bingrad-b"):
@@ -2540,10 +2567,10 @@ def run_fsdp_train(torch):
 
 def check_fsdp_card_vs_cpu(torch, dev, grads):
     """The fsdp exchange and its EF residuals
-    (``FsdpExchange.exchange_with_residuals``) of the four full-width
-    leaves of phase 11 (final_norm, wq, norm1, norm2: 7.1 M values,
-    sharded as lm-100m's plan shards them; the FFN's wo left out since PR
-    20 to keep the script within its time), on the 1/64 grid with
+    (``FsdpExchange.exchange_with_residuals``) of the five full-width
+    leaves of phase 11 (final_norm, wq, norm1, norm2 and the FFN's wo:
+    26.0 M values, sharded as lm-100m's plan shards them), on the 1/64
+    grid with
     EF buffers of multiples of 1/512, on the card (NCCL) and on the CPU (a
     gloo group of the same world), orq-9 and BinGrad-b: bit-equal."""
     import torch.distributed as dist
@@ -2559,15 +2586,15 @@ def check_fsdp_card_vs_cpu(torch, dev, grads):
     ap = model.abstract_params()
     plan = plan_sharding_shapes(model, ap, dp_axes=("data",),
                                 axis_sizes={"data": 1})
-    sub = _on_grid(torch, _subtree(grads))
+    sub = _on_grid(torch, _subtree(grads, True))
     gloo = dist.new_group(ranks=[0], backend="gloo")
     failed = []
     for scheme in ("orq-9", "bingrad-b"):
         out = {}
         for where, group in ((dev, None), ("cpu", gloo)):
             fex = FsdpExchange.build(
-                QuantPolicy.parse(scheme), _subtree(ap), ("data",),
-                paths=_subtree(plan.paths),
+                QuantPolicy.parse(scheme), _subtree(ap, True), ("data",),
+                paths=_subtree(plan.paths, True),
                 shard_dims=plan.full_shard_dims(), n_shards=1, group=group)
             bufs = [b.to(where) for b in fex.layout.flatten_groups(sub)]
             g = torch.Generator().manual_seed(16)
@@ -2914,8 +2941,8 @@ def run_async_train(torch, dev, dist, flat_sha):
 def check_async_card_vs_cpu(torch, dev, grads):
     """The sync step of ``two_level_async`` (the inner update, the outer
     exchange of the window's delta with its EF residual, the Nesterov
-    outer step) on five full-width leaves, phase 11's four and the FFN's
-    wo (a model whose gradient is those leaves on the 1/64 grid), from a
+    outer step) on phase 11's five full-width leaves (a model whose
+    gradient is those leaves on the 1/64 grid), from a
     state on the grid (lr 1, momentum 0.5: the delta stays on the grid),
     on the card (NCCL) and on the CPU (a gloo group of the same world):
     params, optimizer state, EF, anchor and outer momentum bit-equal."""
@@ -2978,7 +3005,7 @@ def check_async_card_vs_cpu(torch, dev, grads):
 # phase 19: the paper's CIFAR setting (ResNet, per-leaf qdq, SGD with wd)
 # ---------------------------------------------------------------------------
 
-CIFAR_STEPS = 4
+CIFAR_STEPS = 3
 #: config -> (ResNetConfig fields, leaves, parameters)
 CIFAR_CONFIGS = {"example": ({"width": 16, "blocks_per_stage": 1}, 25,
                              77_850),
@@ -3136,7 +3163,7 @@ def check_cifar_card_vs_cpu(torch, dev):
 #: arch -> layers kept: one cycle of its layer pattern
 SERVE_ARCHS = {"qwen1.5-32b": 1, "command-r-plus-104b": 1,
                "chameleon-34b": 1, "gemma2-9b": 2, "gemma3-27b": 6}
-ARCH_BATCH, ARCH_GEN, ARCH_PAGE, ARCH_CHUNK = 2, 4, 64, 512
+ARCH_BATCH, ARCH_GEN, ARCH_PAGE, ARCH_CHUNK = 2, 3, 64, 512
 ARCH_TRAIN_ARGS = ["--smoke", "--quant", "orq-9", "--steps", "1",
                    "--batch", "2", "--seq", "128", "--bucket", "512"]
 
@@ -3239,9 +3266,7 @@ def run_serve_archs(torch, dev):
     ``decode_attend`` call of the run and its first KV encode held against
     the plain versions; then one ``--smoke`` training step of the arch
     through the launcher."""
-    import dataclasses
-
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_depth, get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launcher
     from repro_torch.models import LM
@@ -3255,7 +3280,7 @@ def run_serve_archs(torch, dev):
     times = {}
     for arch, layers in SERVE_ARCHS.items():
         full = get_config(arch)
-        cfg = dataclasses.replace(full, num_layers=layers)
+        cfg = cut_depth(full, layers)
         model = LM(cfg)
         t0 = time.perf_counter()
         params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -3342,6 +3367,505 @@ def run_serve_archs(torch, dev):
         if not all(x == x and abs(x) < float("inf") for x in losses):
             raise AssertionError(f"train {arch} --smoke: losses {losses}")
     return totals, times
+
+
+# ---------------------------------------------------------------------------
+# phase 21: Mixture-of-Experts and Multi-head Latent Attention
+# ---------------------------------------------------------------------------
+
+#: arch -> layers kept: mixtral's one (MoE) layer; deepseek's dense first
+#: layer and one MLA + MoE layer
+MOE_ARCHS = {"mixtral-8x22b": 1, "deepseek-v2-236b": 2}
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_MAX_LEN = 8, 64, 9, 128
+MOE_TRAIN_ARGS = ["--smoke", "--bucket", "512", "--batch", "8", "--seq",
+                  "64", "--seed", "0", "--log-every", "1"]
+#: 2 steps then 1 with error feedback: two encodes a step (BinGrad-b's EF
+#: levels a third), one decode of each kind, one qdq an EF step
+MOE_TRAIN_EXPECT = {
+    "orq-9": {"encode_fused": 6, "decode_fused_mean": 3,
+              "decode_fused_each": 3, "qdq_fused": 1},
+    "bingrad-b": {"encode_bingrad_fused": 7, "decode_fused_mean": 3,
+                  "decode_fused_each": 3, "qdq_fused": 1}}
+MOE_ATOL_F32 = 1e-5
+MLA_ATOL = 1e-4
+MLA_CACHE_RTOL = 1e-6
+ATOL_BF16 = 0.02               # of the logits' largest magnitude
+ROUTE_AGREE = 0.9
+ROUTE_TIE = 1e-2               # a router margin the bf16 drift may close
+
+
+def _moe_routing_log(moe):
+    """Record every ``moe.route`` call's tokens, capacity and tensors
+    (left on their device: no sync inside the timed path); returns (log,
+    restore)."""
+    log, orig = [], moe.route
+
+    def rec(p, x, spec):
+        r = orig(p, x, spec)
+        log.append(dict(T=int(x.shape[0]), C=r.capacity, keep=r.keep,
+                        topi=r.topi, probs=r.probs.detach()))
+        return r
+
+    moe.route = rec
+    return log, lambda: setattr(moe, "route", orig)
+
+
+def _drop_stats(calls):
+    if not calls:
+        return None
+    kept = sum(int(c["keep"].sum()) for c in calls)
+    slots = sum(c["keep"].numel() for c in calls)
+    return dict(calls=len(calls), tokens=sorted({c["T"] for c in calls}),
+                capacity=sorted({c["C"] for c in calls}),
+                dropped_share=1.0 - kept / slots)
+
+
+def _route_flips(want_log, got_log):
+    """Per MoE call: the share of tokens sent to the same expert set, and
+    the reference side's margin between its k-th and (k+1)-th prob at
+    each token whose set differs."""
+    out = []
+    for w, g in zip(want_log, got_log, strict=True):
+        wi, gi = w["topi"].cpu(), g["topi"].cpu()
+        same = (wi.sort(-1).values == gi.sort(-1).values).all(-1)
+        k = wi.shape[-1]
+        srt = w["probs"].cpu().sort(-1, descending=True).values
+        margin = (srt[:, k - 1] - srt[:, k])[~same]
+        out.append((float(same.float().mean()), margin.tolist()))
+    return out
+
+
+def _moe_serve(torch, dev, arch, layers, smi):
+    """One arch at full width, its depth cut to ``layers``, on the dense
+    path through the serving launcher's ``_serve_dense``: prefill (chunked
+    for GQA, token by token for MLA) of MOE_BATCH prompts of MOE_PROMPT
+    tokens, then MOE_GEN - 1 decode steps. Counters zeroed just before
+    must read 0 (the dense path is plain PyTorch, as in the reference)."""
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import LM, moe
+    from repro_torch.models.model import map_tree
+    from repro_torch.utils.pytree import tree_leaves
+
+    full = get_config(arch)
+    cfg = cut_depth(full, layers)
+    model = LM(cfg)
+    ap = model.abstract_params()
+    n_params = sum(t.numel() for t in tree_leaves(ap))
+    biggest = max(t.numel() for t in tree_leaves(ap))
+    # the f32 draw, one leaf's stacking copy, then the bf16 copy beside it
+    reckoned = 4 * n_params + 4 * biggest + 2 * n_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    params = map_tree(lambda t: t.to(torch.bfloat16), params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    chunk = MOE_PROMPT if model.supports_chunked_prefill() else 0
+    args = launcher.parse_args([
+        "--arch", arch, "--batch", str(MOE_BATCH), "--prompt-len",
+        str(MOE_PROMPT), "--gen", str(MOE_GEN), "--max-len",
+        str(MOE_MAX_LEN), "--prefill-chunk", str(chunk)])
+    prompt = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).numpy().astype("int32")
+    n_moe = sum(s.moe for s in model.specs)
+    log, restore = _moe_routing_log(moe)
+    try:
+        _zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r = launcher._serve_dense(args, model, params, prompt, dev)
+        launches = _read_counters()
+        serve_peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        restore()
+    warm = n_moe * (2 if chunk else 1)
+    dec_calls = (MOE_GEN - 1) * n_moe
+    m = cfg.mla
+    gqa_bytes = 2 * cfg.num_heads * cfg.resolved_head_dim * 2
+    cache_expect = sum(
+        (MOE_BATCH * MOE_MAX_LEN * r["token_bytes"] + MOE_MAX_LEN * 4)
+        for s in model.specs) if m else None
+    row = dict(arch=arch, layers=layers, layers_full=full.num_layers,
+               reduced=f"num_layers {full.num_layers} -> {layers}",
+               n_params=n_params, bf16_weight_bytes=2 * n_params,
+               d_model=cfg.d_model, heads=cfg.num_heads,
+               kv_heads=cfg.num_kv_heads, experts=cfg.moe.num_experts,
+               top_k=cfg.moe.top_k, shared=cfg.moe.num_shared,
+               d_ff_expert=cfg.moe.d_ff_expert, mla=m is not None,
+               init_s=init_s, init_peak_bytes=init_peak,
+               init_peak_reckoned_bytes=reckoned,
+               serve_peak_above_start=serve_peak,
+               prefill_chunk=r["prefill_chunk"],
+               prefill_tokens=r["prefill_tokens"], prefill_s=r["prefill_s"],
+               prefill_tok_s=r["prefill_tok_s"],
+               decode_tokens=r["decode_tokens"],
+               decode_step_p50_ms=r["step_p50_ms"],
+               decode_step_p99_ms=r["step_p99_ms"],
+               decode_tok_s=r["decode_tok_s"],
+               moe_prefill=_drop_stats(log[warm:len(log) - dec_calls]),
+               moe_decode=_drop_stats(log[len(log) - dec_calls:]),
+               token_bytes=r["token_bytes"], gqa_token_bytes=gqa_bytes,
+               cache_bytes=r["cache_bytes"], cache_bytes_expected=cache_expect,
+               launches=launches, tokens_sha256=r["sha256"], device=smi)
+    emit("moe_mla", what="serve, dense path", **row)
+    toks = r["tokens"]
+    if any(launches.values()):
+        raise AssertionError(f"{arch} dense serve launched kernels "
+                             f"{launches}")
+    if toks.shape != (MOE_BATCH, MOE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+    if (len(log) != warm + (MOE_PROMPT // max(chunk, 1) if chunk
+                            else MOE_PROMPT) * n_moe + dec_calls):
+        raise AssertionError(f"{arch}: {len(log)} MoE calls")
+    if m is not None and (r["token_bytes"] != (m.kv_lora + m.rope_head_dim)
+                          * 2 or r["cache_bytes"] != cache_expect):
+        raise AssertionError(f"{arch}: MLA cache accounting {row}")
+    del params, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mla_row_split(torch, dev, cfg, p, x, pos):
+    """Where the new cache row's card-vs-CPU differences arise, stage by
+    stage of ``blocks._mla_decode``'s write: the projection ``norm1(x) @
+    wkv_a`` (its latent and rope parts), then ``rms_norm`` and
+    ``apply_rope`` each on the CPU's projection on both sides, so that
+    each stage's own rounding shows. -> stage -> (values that differ of
+    all, max abs diff)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import apply_rope, rms_norm
+    from repro_torch.models.model import map_tree
+
+    dc = cfg.mla.kv_lora
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+
+    def project(pp, xx):
+        return blocks._apply_norm(cfg, pp["norm1"], xx)[:, 0] @ pp["attn"][
+            "wkv_a"]
+
+    def norm_rope(pp, kv):
+        posv = torch.full((kv.shape[0], 1), pos, dtype=torch.int32,
+                          device=kv.device)
+        return (rms_norm(kv[..., :dc], pp["attn"]["kv_norm"], cfg.norm_eps),
+                apply_rope(kv[..., dc:][:, None, None, :], posv,
+                           cfg.rope_theta)[:, 0, 0])
+
+    def diff(a, b):
+        a = a.cpu()
+        return [int((a != b).sum()), b.numel(), float((a - b).abs().max())]
+
+    pd = map_tree(to_dev, p)
+    kv_cpu = project(p, x)
+    kv_dev = project(pd, to_dev(x))
+    ckv_cpu, kr_cpu = norm_rope(p, kv_cpu)
+    ckv_dev, kr_dev = norm_rope(pd, to_dev(kv_cpu))
+    return {"projection_latent": diff(kv_dev[..., :dc], kv_cpu[..., :dc]),
+            "projection_rope": diff(kv_dev[..., dc:], kv_cpu[..., dc:]),
+            "rms_norm_alone": diff(ckv_dev, ckv_cpu),
+            "apply_rope_alone": diff(kr_dev, kr_cpu)}
+
+
+def _moe_card_vs_cpu(torch, dev, arch, smi):
+    """At the ``SMOKE`` sizes, the same weights on both sides: ``moe_ffn``
+    in f32 (routing equal, y and aux within MOE_ATOL_F32), one MLA decode
+    step in f32 (new ``ckv`` / ``kr`` rows within MLA_CACHE_RTOL of their
+    magnitude, every other slot and ``pos`` bit-equal, the output within
+    MLA_ATOL; ``_mla_row_split`` reads which stage the rows' differences
+    come from), and a bf16 forward: the card's own routing on at least
+    ROUTE_AGREE of the tokens of every MoE layer the CPU's, every token
+    that differs a near-tie of the CPU's router (margin under ROUTE_TIE),
+    and the logits within ATOL_BF16 with the card routed as the CPU."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import LM, blocks, moe
+    from repro_torch.models.model import map_tree
+
+    cfg = get_smoke_config(arch)
+    model = LM(cfg)
+    to_dev = lambda tree: map_tree(lambda t: t.to(dev), tree)  # noqa: E731
+    g = torch.Generator().manual_seed(2)
+    spec = next(s for s in model.specs if s.moe)
+    p = blocks.init_layer(cfg, spec, g)
+    x = torch.randn((256, cfg.d_model), generator=g)
+    # expert 0 favoured, so its queue overflows: drops on both sides
+    p["ffn"]["router"][0, 0] = 4.0
+    x[:, 0] += 1.5
+    mspec = blocks.moe_spec(cfg)
+    y_cpu, aux_cpu = moe.moe_ffn(p["ffn"], x, mspec)
+    y, aux = moe.moe_ffn(to_dev(p["ffn"]), x.to(dev), mspec)
+    r_cpu = moe.route(p["ffn"], x, mspec)
+    r = moe.route(to_dev(p["ffn"]), x.to(dev), mspec)
+    res = dict(arch=arch, routing_equal=bool(
+        torch.equal(r.topi.cpu(), r_cpu.topi)
+        and torch.equal(r.keep.cpu(), r_cpu.keep)),
+        dropped=int((~r_cpu.keep).sum()),
+        moe_y_max_abs_diff=float((y.cpu() - y_cpu).abs().max()),
+        moe_aux_diff=abs(float(aux) - float(aux_cpu)))
+    ok = (res["routing_equal"] and res["moe_y_max_abs_diff"] <= MOE_ATOL_F32
+          and res["moe_aux_diff"] <= MOE_ATOL_F32)
+    if cfg.mla is not None:
+        B, C, pos = 3, 16, 5
+        m = cfg.mla
+        cache = blocks.init_layer_cache(cfg, spec, B, C, torch.float32,
+                                        device="cpu")
+        cache["ckv"][:, :pos] = torch.randn((B, pos, m.kv_lora), generator=g)
+        cache["kr"][:, :pos] = torch.randn((B, pos, m.rope_head_dim),
+                                           generator=g)
+        cache["pos"][:pos] = torch.arange(pos, dtype=torch.int32)
+        xd = torch.randn((B, 1, cfg.d_model), generator=g)
+        cache_d = {k: v.to(dev) for k, v in cache.items()}
+        want = blocks._mla_decode(cfg, p, xd, cache, pos)
+        got = blocks._mla_decode(cfg, to_dev(p), xd.to(dev), cache_d, pos)
+        res["mla_out_max_abs_diff"] = float((got.cpu() - want).abs().max())
+        ok &= res["mla_out_max_abs_diff"] <= MLA_ATOL
+        for k in ("ckv", "kr"):
+            a, b = cache_d[k].cpu(), cache[k]
+            new = (a[:, pos] - b[:, pos]).abs()
+            res[f"{k}_new_row_max_abs_diff"] = float(new.max())
+            res[f"{k}_new_row_values_differ"] = [
+                int((a[:, pos] != b[:, pos]).sum()), b[:, pos].numel()]
+            ok &= (torch.equal(a[:, :pos], b[:, :pos])
+                   and torch.equal(a[:, pos + 1:], b[:, pos + 1:])
+                   and float(new.max()) <= MLA_CACHE_RTOL
+                   * float(b.abs().max()))
+        ok &= torch.equal(cache_d["pos"].cpu(), cache["pos"])
+        res["mla_row_split"] = _mla_row_split(torch, dev, cfg, p, xd, pos)
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(4))
+    runs = []
+    for where, pp, force in (("cpu", params, None),
+                             (dev, to_dev(params), None),
+                             (dev, to_dev(params), "cpu")):
+        log, restore = _moe_routing_log(moe)
+        top_k = moe.top_k
+        if force:                     # the card routed as the CPU routed
+            forced = iter([c["topi"].to(dev) for c in runs[0][2]])
+
+            def routed_as_cpu(probs, k):
+                idx = next(forced)
+                return torch.gather(probs, -1, idx), idx
+
+            moe.top_k = routed_as_cpu
+        try:
+            lg, a = model.logits(pp, toks.to(where))
+        finally:
+            restore()
+            moe.top_k = top_k
+        runs.append((lg.cpu(), float(a), log))
+    (want, aux_cpu, log_cpu), (_, _, log_dev), (got, aux_dev, _) = runs
+    flips = _route_flips(log_cpu, log_dev)
+    err = float((got - want).abs().max())
+    bound = ATOL_BF16 * float(want.abs().max())
+    res.update(routing_agreement_by_layer=[f[0] for f in flips],
+               flip_margins_by_layer=[f[1] for f in flips],
+               logits_max_abs_diff_routed_as_cpu=err, logits_bound=bound,
+               aux_cpu=aux_cpu, aux_card=aux_dev, device=smi)
+    ok &= (err <= bound and abs(aux_dev - aux_cpu) <= 1e-4 and aux_dev > 0
+           and all(share >= ROUTE_AGREE and all(m < ROUTE_TIE for m in mg)
+                   for share, mg in flips))
+    emit("moe_mla", what="card vs CPU at SMOKE", ok=bool(ok), **res)
+    if not ok:
+        raise AssertionError(f"{arch}: card and CPU differ: {res}")
+    return res
+
+
+#: the dispatchers (``kernels.ops``) of the exchange's kernels -> the
+#: kernel each launches on a CUDA tensor
+MOE_HELD = {"encode_fused": "encode_fused", "qdq_fused": "qdq_fused",
+            "encode_bingrad": "encode_bingrad_fused",
+            "decode_fused_mean": "decode_fused_mean",
+            "decode_fused_each": "decode_fused_each"}
+
+
+def _record_ops(torch, calls):
+    """Record every call of MOE_HELD's dispatchers as (name, args, kwargs),
+    its tensors cloned (the exchange reuses its buffers); returns the
+    restore."""
+    from repro_torch.kernels import ops
+
+    origs = {n: getattr(ops, n) for n in MOE_HELD}
+
+    def recorder(name, orig):
+        def rec(*args, **kw):
+            calls.append((name, tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args), dict(kw)))
+            return orig(*args, **kw)
+        return rec
+
+    for n, f in origs.items():
+        setattr(ops, n, recorder(n, f))
+    return lambda: [setattr(ops, n, f) for n, f in origs.items()]
+
+
+def _hold_exchange_calls(torch, arch, quant, calls, smi):
+    """The recorded kernel calls of one training step, each kernel against
+    its plain version on the same inputs, by the rules of phase 3:
+    ``encode_fused``'s words and both decodes equal by value, ``qdq_fused``
+    bit for bit; ``encode_bingrad_fused``'s levels bit-equal to
+    ``kernel_order_levels``, within LEVEL_RTOL of the plain fit's (at most
+    FLIP_SHARE of the rows beyond it, none beyond FLIP_RTOL), its words
+    the exact threshold of its own levels."""
+    from repro_torch.kernels import fused_bingrad as fb
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import fused_encode as fe
+
+    rows, failed = [], []
+    for name, args, kw in calls:
+        row = dict(call=name, shape=list(args[0].shape))
+        if name in ("encode_fused", "qdq_fused"):
+            v, lv, rb, mask = args
+            lim = fe.clip_limit(v, mask, kw.get("clip_c"))
+            a = (v, lv, rb, mask, lim)
+            if name == "encode_fused":
+                k = dict(bits=kw["bits"], mode=kw.get("mode", "rr"))
+                row.update(valid=int(mask.sum()) if mask is not None
+                           else v.numel(), **k)
+                bad = _mismatch(torch, fe.encode_fused_cuda(*a, **k),
+                                fe.encode_fused_plain(*a, **k))
+            else:
+                k = dict(mode=kw.get("mode", "rr"))
+                got = fe.qdq_fused_cuda(*a, **k).view(torch.int32)
+                bad = _mismatch(torch, got, fe.qdq_fused_plain(*a, **k)
+                                .view(torch.int32))
+            row["mismatched"] = bad
+        elif name == "encode_bingrad":
+            v, mask = args
+            lim = fe.clip_limit(v, mask, kw.get("clip_c"))
+            li = kw.get("lloyd_iters", 0)
+            words, lv = fb.encode_bingrad_fused_cuda(v, mask, lim,
+                                                     lloyd_iters=li)
+            _, want_l = fb.encode_bingrad_fused_plain(v, mask, lim,
+                                                      lloyd_iters=li)
+            order = fb.kernel_order_levels(v, mask, lim, lloyd_iters=li)
+            own = fe.encode_fused_plain(v, lv, None, mask, lim, bits=1,
+                                        mode="bin")
+            diff = (lv - want_l).abs()
+            vmax = float((v.abs() * mask).max() if mask is not None
+                         else v.abs().max())
+            far = int((diff > LEVEL_RTOL * vmax).any(dim=1).sum())
+            row.update(levels_equal_kernel_order=torch.equal(
+                lv.view(torch.int32), order.view(torch.int32)),
+                level_err=float(diff.max()), level_tol=LEVEL_RTOL * vmax,
+                level_rows_beyond_tol=far,
+                words_vs_own_threshold=_mismatch(torch, words, own))
+            bad = int(not (row["levels_equal_kernel_order"]
+                           and far <= FLIP_SHARE * v.shape[0]
+                           and row["level_err"] <= FLIP_RTOL * vmax
+                           and row["words_vs_own_threshold"] == 0))
+        else:
+            words, lv, d = args
+            k = dict(d=d, bits=kw["bits"])
+            cuda, plain = ((fd.decode_fused_mean_cuda,
+                            fd.decode_fused_mean_plain)
+                           if name == "decode_fused_mean" else
+                           (fd.decode_fused_each_cuda,
+                            fd.decode_fused_each_plain))
+            row.update(d=d, bits=kw["bits"])
+            bad = row["mismatched"] = _mismatch(
+                torch, cuda(words, lv, **k), plain(words, lv, **k))
+        rows.append(row)
+        if bad:
+            failed.append(row)
+    emit("moe_mla", what="train step's kernel calls vs plain", arch=arch,
+         quant=quant, calls=rows, device=smi)
+    if failed:
+        raise AssertionError(f"train {arch} {quant}: kernels disagree with "
+                             f"their plain versions: {failed}")
+    return rows
+
+
+def _moe_train(torch, arch, smi):
+    """``launch.train --arch <arch> --smoke``, orq-9 and BinGrad-b, 2
+    steps then 1 with error feedback, on a world of one: finite losses,
+    aux > 0, 4 collective launches a step, the fused path's kernel
+    launches, wire bytes per worker equal to ``policy_stats`` on the
+    model's path sizes. Every kernel call of the EF step (encodes, qdq,
+    decodes) is recorded and held against its plain version."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.comm.exchange import policy_stats
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import LM
+
+    sizes = _path_sizes(LM(get_smoke_config(arch)))
+    total = {}
+    for quant, expect in MOE_TRAIN_EXPECT.items():
+        wire = policy_stats(QuantPolicy.parse(quant, bucket_size=512),
+                            sizes, 1)[1]
+        _zero_counters()
+        rows, calls = [], []
+        for extra in (["--steps", "2"], ["--steps", "1",
+                                         "--error-feedback"]):
+            args = ["--arch", arch, "--quant", quant, *MOE_TRAIN_ARGS,
+                    *extra]
+            if "--error-feedback" not in extra:
+                r = launcher.train(args)
+            else:
+                before = _read_counters()
+                restore = _record_ops(torch, calls)
+                try:
+                    r = launcher.train(args)
+                finally:
+                    restore()
+                step = {k: n - before[k] for k, n in _read_counters().items()}
+                seen = {k: sum(c[0] == op for c in calls)
+                        for op, k in MOE_HELD.items()}
+                if any(seen[k] != step[k] for k in seen) or any(
+                        n for k, n in step.items() if k not in seen):
+                    raise AssertionError(f"train {arch} {quant}: recorded "
+                                         f"{seen}, launched {step}")
+            rows.append(dict(args=" ".join(args),
+                             losses=[h["loss"] for h in r["history"]],
+                             aux=[h["aux"] for h in r["history"]],
+                             step_s=r["step_s"], n_params=r["n_params"],
+                             wire_bytes_per_worker=r[
+                                 "wire_bytes_per_worker"],
+                             collective_launches_per_step=r[
+                                 "collective_launches_per_step"],
+                             replicas_in_sync=r["replicas_in_sync"]))
+        launches = _read_counters()
+        want = _expect(expect)
+        emit("moe_mla", what="train --smoke", arch=arch, quant=quant,
+             runs=rows, launches=launches, expected_launches=want,
+             wire_expected=wire, device=smi)
+        for row in rows:
+            if (not all(x == x and abs(x) < float("inf")
+                        for x in row["losses"])
+                    or not all(a > 0 for a in row["aux"])
+                    or row["collective_launches_per_step"] != 4
+                    or row["wire_bytes_per_worker"] != wire
+                    or not row["replicas_in_sync"]):
+                raise AssertionError(f"train {arch} {quant}: {row}")
+        if launches != want:
+            raise AssertionError(f"train {arch} {quant}: launches "
+                                 f"{launches} != {want}")
+        _hold_exchange_calls(torch, arch, quant, calls, smi)
+        del calls
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_moe_mla(torch, dev):
+    """Phase 21: mixtral-8x22b and deepseek-v2-236b served at full width
+    on the dense path, the card against the CPU at their smoke sizes, and
+    their smoke training through the ported exchange's kernels."""
+    smi = nvidia_smi()
+    total = {k: 0 for k in _counters()}
+    for arch, layers in MOE_ARCHS.items():
+        _moe_serve(torch, dev, arch, layers, smi)
+        _moe_card_vs_cpu(torch, dev, arch, smi)
+        for k, v in _moe_train(torch, arch, smi).items():
+            total[k] += v
+    return total
 
 
 def start_world(torch):
@@ -3459,6 +3983,8 @@ def main() -> int:
     lap("paper_cifar")
     arch_launches, arch_times = run_serve_archs(torch, dev)
     lap("serve_archs")
+    moe_launches = run_moe_mla(torch, dev)
+    lap("moe_mla")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -3473,7 +3999,8 @@ def main() -> int:
              "train_bit_schedule": sched_launches,
              "train_async": async_launches,
              "paper_cifar": cifar_launches,
-             "serve_archs": arch_launches}
+             "serve_archs": arch_launches,
+             "moe_mla": moe_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -121,6 +121,8 @@ _REGISTRY = {
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 
@@ -132,6 +134,16 @@ def get_config(name: str) -> ModelConfig:
     """Full-size config for ``--arch <name>``."""
     mod = importlib.import_module(_REGISTRY[name])
     return mod.CONFIG
+
+
+def cut_depth(cfg: ModelConfig, num_layers: Optional[int]) -> ModelConfig:
+    """``cfg`` kept to its first ``num_layers`` layers, widths unchanged
+    (None keeps every layer)."""
+    if num_layers is None:
+        return cfg
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(f"num_layers {num_layers} not in 1..{cfg.num_layers}")
+    return dataclasses.replace(cfg, num_layers=num_layers)
 
 
 def get_smoke_config(name: str) -> ModelConfig:

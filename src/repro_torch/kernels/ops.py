@@ -17,6 +17,21 @@ from repro_torch.kernels import fused_kv as _fkv
 from repro_torch.kernels import quant_rr as _qrr
 
 
+def launch_counters() -> dict:
+    """Every kernel's CUDA wrapper by kernel name; each counts its own
+    launches in its ``launches`` attribute (set it to 0 to start a count)."""
+    return {"encode_fused": _fenc.encode_fused_cuda,
+            "decode_attend": _fkv.decode_attend_cuda,
+            "qdq_fused": _fenc.qdq_fused_cuda,
+            "decode_fused_mean": _fdec.decode_fused_mean_cuda,
+            "decode_fused_each": _fdec.decode_fused_each_cuda,
+            "encode_bingrad_fused": _fbin.encode_bingrad_fused_cuda,
+            "bingrad_pass": _bin.bingrad_pass_cuda,
+            "quant_rr": _qrr.quant_rr_cuda, "pack": _pack.pack_cuda,
+            "unpack": _pack.unpack_cuda,
+            "dequant_avg": _dqa.dequant_avg_cuda}
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True

@@ -57,6 +57,14 @@ def _latency(step_s) -> dict:
             "step_p99_ms": float(np.percentile(lat, 99)) if len(lat) else None}
 
 
+def dense_token_bytes(cfg) -> int:
+    """bf16 cache bytes per token and layer on the dense path: K and V of
+    every KV head, or MLA's compressed latent and its rope key."""
+    if cfg.mla is not None:
+        return (cfg.mla.kv_lora + cfg.mla.rope_head_dim) * 2
+    return 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+
+
 def _serve_dense(args, model, params, prompt, device) -> dict:
     cfg = model.cfg
     chunk = args.prefill_chunk
@@ -115,7 +123,7 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
         step_s.append(time.perf_counter() - ts)
     toks = torch.stack(out, dim=1).numpy().astype(np.int32)
     dec_s = sum(step_s)
-    kv_bytes = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    kv_bytes = dense_token_bytes(cfg)
     pre_tok = args.batch * args.prompt_len
     dec_tok = args.batch * (args.gen - 1)
     return {

@@ -73,7 +73,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-from repro_torch.configs.base import get_config, get_smoke_config, list_archs
+from repro_torch.configs.base import (cut_depth, get_config, get_smoke_config,
+                                     list_archs)
 from repro_torch.core import prng
 from repro_torch.core.api import all_methods
 from repro_torch.core.comm.hierarchical import HIERARCHIES
@@ -107,6 +108,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="lm-100m", choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers of the config (a depth "
+                         "cut; widths unchanged)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch (rows are split over the workers)")
@@ -294,6 +298,7 @@ def train(argv=None, on_step=None) -> dict:
     args = ap.parse_args(argv)
     schedule, tcfg = _check_args(ap, args)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cut_depth(cfg, args.layers)
     model = LM(cfg)
     device, rank, ws, created = _init_world(resolve_device(args.device))
     try:
@@ -344,6 +349,7 @@ def train(argv=None, on_step=None) -> dict:
             if i % args.log_every == 0 or i == args.steps - 1:
                 row = {"step": i, "loss": float(metrics["loss"]),
                        "nll": float(metrics["nll"]),
+                       "aux": float(metrics["aux"]),
                        "lr": float(metrics["lr"])}
                 bits = ""
                 if controller is not None:

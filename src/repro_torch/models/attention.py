@@ -1,5 +1,6 @@
 """Attention (the reference's ``models/attention.py``): the spec, its
-scale, the chunked online-softmax attention of the training forward (full
+scale and partial rope (MLA rotates only the last ``rope_dims``), the
+chunked online-softmax attention of the training forward (full
 or sliding-window, the latter as the reference's banded scan), and
 the cache attention with a full per-query mask, used by the serving
 engine's bf16 escape hatch and by the dense ring-buffer decode
@@ -18,8 +19,8 @@ NEG_INF = -2.0e38
 
 class AttnSpec(NamedTuple):
     """The fields of the reference's ``AttnSpec`` that the ported paths
-    read (its scale-override and partial-rope fields belong to MLA and
-    the encoder, which are not ported)."""
+    read (its ``use_rope`` belongs to the encoder and cross-attention,
+    which are not ported)."""
 
     num_heads: int
     num_kv_heads: int
@@ -30,10 +31,23 @@ class AttnSpec(NamedTuple):
     window: Optional[int] = None     # None = full; int = sliding window
     q_chunk: int = 512
     kv_chunk: int = 512
+    scale: Optional[float] = None    # default hd^-0.5
+    rope_dims: int = 0               # >0: rotate only the LAST rope_dims
+                                     # (MLA: the nope dims stay unrotated)
 
 
 def _scale(spec: AttnSpec) -> float:
-    return spec.head_dim ** -0.5
+    return spec.scale if spec.scale is not None else spec.head_dim ** -0.5
+
+
+def spec_rope(x, positions, spec: AttnSpec):
+    """The spec's rope on (..., S, H, hd): the whole head, or with
+    ``rope_dims`` only its last ``rope_dims`` dimensions."""
+    if spec.rope_dims:
+        keep, rot = x[..., :-spec.rope_dims], x[..., -spec.rope_dims:]
+        return torch.cat([keep, apply_rope(rot, positions,
+                                           spec.rope_theta)], dim=-1)
+    return apply_rope(x, positions, spec.rope_theta)
 
 
 def _chunk_scores(q, k, spec: AttnSpec):
@@ -76,8 +90,8 @@ def chunked_attention(q, k, v, spec: AttnSpec):
     sum, acc) exactly as they were, so they are skipped here."""
     B, S, H, hd = q.shape
     pos = torch.arange(S, device=q.device)
-    q = apply_rope(q, pos, spec.rope_theta)
-    k = apply_rope(k, pos, spec.rope_theta)
+    q = spec_rope(q, pos, spec)
+    k = spec_rope(k, pos, spec)
     qc, kc = min(spec.q_chunk, S), min(spec.kv_chunk, S)
     banded = spec.window is not None and spec.causal
     if banded and qc != kc:

@@ -1,15 +1,18 @@
-"""Per-layer parameters and the dense GQA attention layer: the pieces the
-serving engine applies, the training forward ``apply_layer_train`` and
-the dense ring-buffer decode (``init_layer_cache``,
-``apply_layer_prefill_chunk``, ``apply_layer_decode``), as in the
-reference's ``models/blocks.py``.
+"""Per-layer parameters and the attention layers (GQA or MLA, each with a
+dense or a Mixture-of-Experts FFN): the pieces the serving engine
+applies, the training forward ``apply_layer_train`` and the dense
+ring-buffer decode (``init_layer_cache``, ``apply_layer_prefill_chunk``,
+``apply_layer_decode``), as in the reference's ``models/blocks.py``.
 
-The ring-buffer cache of one layer is ``{"k", "v": (B, C, KV, hd) bf16,
-"pos": (C,) int32}``: slot ``pos % C`` holds the token at absolute
+The ring-buffer cache of a GQA layer is ``{"k", "v": (B, C, KV, hd)
+bf16, "pos": (C,) int32}``: slot ``pos % C`` holds the token at absolute
 position ``pos``, and ``pos`` is -1 where no token was written yet. A
 sliding-window layer (``attn_local``) keeps C = min(max_len, window)
-slots. The decode functions write the new rows into the cache in place
-(the reference donates the cache through its jit) and return it."""
+slots. An MLA layer caches the compressed latent instead, ``{"ckv": (B,
+C, kv_lora), "kr": (B, C, rope_head_dim), "pos"}`` (``kr`` roped when it
+is written), and decodes in the absorbed form. The decode functions write
+the new rows into the cache in place (the reference donates the cache
+through its jit) and return it."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,11 +20,13 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (AttnSpec, chunked_attention,
+from repro_torch.models.attention import (NEG_INF, AttnSpec,
+                                         chunked_attention,
                                          decode_attention,
                                          masked_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_init, gated_mlp,
                                        rms_norm)
+from repro_torch.models.moe import MoESpec, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,24 +55,29 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
     )
 
 
-def check_dense_gqa(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs dense GQA attention layers with RMSNorm only."""
-    if (spec.kind not in ("attn", "attn_local") or spec.moe or cfg.mla
-            or cfg.norm != "rms" or spec.cross_attn):
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    m = cfg.moe
+    return MoESpec(num_experts=m.num_experts, top_k=m.top_k,
+                   d_ff_expert=m.d_ff_expert, num_shared=m.num_shared,
+                   capacity_factor=m.capacity_factor,
+                   router_aux_weight=m.router_aux_weight, act=cfg.mlp_act)
+
+
+def check_ported_layer(cfg: ModelConfig, spec: LayerSpec) -> None:
+    """The port runs attention layers (GQA or MLA, dense or MoE FFN) with
+    RMSNorm; Mamba, RWKV, cross-attention and layer norm are refused."""
+    if (spec.kind not in ("attn", "attn_local") or cfg.norm != "rms"
+            or spec.cross_attn):
         raise NotImplementedError(
-            f"repro_torch ports dense GQA attention layers with RMSNorm "
-            f"only (kind={spec.kind!r}, moe={spec.moe}, "
-            f"mla={cfg.mla is not None}, norm={cfg.norm!r}); the other "
-            f"layer kinds are not ported yet (see ROADMAP.md)")
+            f"repro_torch ports attention layers with RMSNorm only "
+            f"(kind={spec.kind!r}, norm={cfg.norm!r}, "
+            f"cross_attn={spec.cross_attn}); Mamba, RWKV, cross-attention "
+            f"and layer norm are not ported yet (see ROADMAP.md)")
 
 
-def init_layer(cfg: ModelConfig, spec: LayerSpec,
-               gen: torch.Generator) -> dict:
-    """Float32 parameters of one dense GQA attention layer, in the
-    reference's layout."""
-    check_dense_gqa(cfg, spec)
+def _init_attn(cfg: ModelConfig, gen) -> dict:
     D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, F = cfg.resolved_head_dim, spec.d_ff
+    hd = cfg.resolved_head_dim
     attn = {"wq": dense_init(gen, (D, H * hd)),
             "wk": dense_init(gen, (D, KV * hd)),
             "wv": dense_init(gen, (D, KV * hd)),
@@ -79,13 +89,56 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec,
     if cfg.qk_norm:
         attn["q_norm"] = torch.zeros(hd)
         attn["k_norm"] = torch.zeros(hd)
+    return attn
+
+
+def _init_mla(cfg: ModelConfig, gen) -> dict:
+    D, H, m = cfg.d_model, cfg.num_heads, cfg.mla
+    return {
+        "wq_a": dense_init(gen, (D, m.q_lora)),
+        "q_norm": torch.zeros(m.q_lora),
+        "wq_b": dense_init(gen, (m.q_lora,
+                                 H * (m.nope_head_dim + m.rope_head_dim))),
+        "wkv_a": dense_init(gen, (D, m.kv_lora + m.rope_head_dim)),
+        "kv_norm": torch.zeros(m.kv_lora),
+        "wkv_b": dense_init(gen, (m.kv_lora,
+                                  H * (m.nope_head_dim + m.v_head_dim))),
+        "wo": dense_init(gen, (H * m.v_head_dim, D)),
+    }
+
+
+def _init_ffn(cfg: ModelConfig, gen, spec: LayerSpec) -> dict:
+    D = cfg.d_model
+    if spec.moe:
+        m = cfg.moe
+        E, Fe = m.num_experts, m.d_ff_expert
+        p = {"router": dense_init(gen, (D, E)),
+             "wg": dense_init(gen, (E, D, Fe), in_axis=1),
+             "wu": dense_init(gen, (E, D, Fe), in_axis=1),
+             "wo": dense_init(gen, (E, Fe, D), in_axis=1)}
+        if m.num_shared:
+            Fs = Fe * m.num_shared
+            p["shared_wg"] = dense_init(gen, (D, Fs))
+            p["shared_wu"] = dense_init(gen, (D, Fs))
+            p["shared_wo"] = dense_init(gen, (Fs, D))
+        return p
+    F = spec.d_ff
+    return {"wi_gate": dense_init(gen, (D, F)),
+            "wi_up": dense_init(gen, (D, F)),
+            "wo": dense_init(gen, (F, D))}
+
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec,
+               gen: torch.Generator) -> dict:
+    """Float32 parameters of one attention layer, in the reference's
+    layout."""
+    check_ported_layer(cfg, spec)
+    D = cfg.d_model
     return {
         "norm1": {"scale": torch.zeros(D)},
         "norm2": {"scale": torch.zeros(D)},
-        "attn": attn,
-        "ffn": {"wi_gate": dense_init(gen, (D, F)),
-                "wi_up": dense_init(gen, (D, F)),
-                "wo": dense_init(gen, (F, D))},
+        "attn": _init_mla(cfg, gen) if cfg.mla else _init_attn(cfg, gen),
+        "ffn": _init_ffn(cfg, gen, spec),
     }
 
 
@@ -110,21 +163,57 @@ def _gqa_project(cfg: ModelConfig, p, x):
     return q, k, v
 
 
+def _mla_project(cfg: ModelConfig, p, x):
+    """MLA's expanded-form projections (train): q and k of head dim
+    nope + rope (k's rope part one shared head, broadcast over H before
+    the attention), v of ``v_head_dim``."""
+    B, S, D = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    kv_in = x @ p["wkv_a"]                               # (B, S, dc + dr)
+    ckv = rms_norm(kv_in[..., :m.kv_lora], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_in[..., m.kv_lora:]
+    kvb = (ckv @ p["wkv_b"]).reshape(B, S, H, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb[..., :m.nope_head_dim], kvb[..., m.nope_head_dim:]
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
+                                                     m.rope_head_dim)],
+                  dim=-1)
+    return q, k, v
+
+
 def _ffn_train(cfg: ModelConfig, spec: LayerSpec, p, x):
-    """Dense gated MLP. Returns (y, aux) like the reference."""
+    """The gated MLP or the MoE FFN. Returns (y, aux) like the
+    reference."""
+    if spec.moe:
+        B, S, D = x.shape
+        y, aux = moe_ffn(p, x.reshape(B * S, D), moe_spec(cfg))
+        return y.reshape(B, S, D), aux
     return gated_mlp(p, x, act=cfg.mlp_act), 0.0
 
 
 def _attn_block_train(cfg: ModelConfig, spec: LayerSpec, p, x):
-    q, k, v = _gqa_project(cfg, p["attn"], x)
-    o = chunked_attention(q, k, v, attn_spec(cfg, spec))
     B, S = x.shape[:2]
+    asp = attn_spec(cfg, spec)
+    if cfg.mla:
+        m = cfg.mla
+        hd = m.nope_head_dim + m.rope_head_dim
+        q, k, v = _mla_project(cfg, p["attn"], x)
+        asp = asp._replace(num_kv_heads=cfg.num_heads, head_dim=hd,
+                           scale=hd ** -0.5, rope_dims=m.rope_head_dim)
+        # v zero-padded to the qk head dim for the shared attention, then
+        # sliced back
+        v = torch.nn.functional.pad(v, (0, hd - m.v_head_dim))
+        o = chunked_attention(q, k, v, asp)[..., :m.v_head_dim]
+        return o.reshape(B, S, -1) @ p["attn"]["wo"]
+    q, k, v = _gqa_project(cfg, p["attn"], x)
+    o = chunked_attention(q, k, v, asp)
     return o.reshape(B, S, -1) @ p["attn"]["wo"]
 
 
 def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
     """x (B,S,D) -> (x', aux_loss): pre-norm attention, then the FFN."""
-    check_dense_gqa(cfg, spec)
+    check_ported_layer(cfg, spec)
     h = x + _attn_block_train(cfg, spec, p, _apply_norm(cfg, p["norm1"], x))
     y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y, aux
@@ -137,21 +226,76 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype=torch.bfloat16,
                      device=None) -> dict:
-    """One GQA attention layer's empty ring-buffer cache."""
-    check_dense_gqa(cfg, spec)
+    """One attention layer's empty ring-buffer cache: K/V heads, or MLA's
+    compressed latent (``ckv``, ``kr``)."""
+    check_ported_layer(cfg, spec)
     C = min(max_len, cfg.window) if spec.kind == "attn_local" else max_len
+    if cfg.mla:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, C, m.kv_lora), dtype=dtype,
+                                   device=device),
+                "kr": torch.zeros((batch, C, m.rope_head_dim), dtype=dtype,
+                                  device=device),
+                "pos": torch.full((C,), -1, dtype=torch.int32,
+                                  device=device)}
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     return {"k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
             "pos": torch.full((C,), -1, dtype=torch.int32, device=device)}
 
 
-def _attend_out(cfg, spec, p, x, o):
-    """Attention output projection, the residual, then the FFN block."""
-    B, T = x.shape[:2]
-    h = x + o.reshape(B, T, -1) @ p["attn"]["wo"]
+def _ffn_block(cfg, spec, p, h):
+    """The pre-norm FFN block on the residual stream h."""
     y, _ = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y
+
+
+def _attend_out(cfg, spec, p, x, o):
+    """Attention output projection and the residual, then the FFN block."""
+    B, T = x.shape[:2]
+    return _ffn_block(cfg, spec, p, x + o.reshape(B, T, -1) @ p["attn"]["wo"])
+
+
+def _mla_decode(cfg: ModelConfig, p, x, cache: dict, pos: int):
+    """Absorbed-form MLA decode of x (B, 1, D) over the compressed cache
+    -> the residual stream h. q_nope goes through W_uk so that scores are
+    taken against the kv_lora-wide latent, and the attended latent is
+    expanded through W_uv; the new token's ``ckv`` and roped ``kr`` are
+    written at slot ``pos % C`` first."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, dn, dr, dv, dc = (cfg.num_heads, m.nope_head_dim, m.rope_head_dim,
+                         m.v_head_dim, m.kv_lora)
+    f32 = torch.float32
+    pa = p["attn"]
+    xn = _apply_norm(cfg, p["norm1"], x)
+    cq = rms_norm(xn @ pa["wq_a"], pa["q_norm"], cfg.norm_eps)
+    q = (cq @ pa["wq_b"]).reshape(B, 1, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+    kv_in = xn[:, 0] @ pa["wkv_a"]                       # (B, dc + dr)
+    ckv_t = rms_norm(kv_in[..., :dc], pa["kv_norm"], cfg.norm_eps)
+    kr_t = apply_rope(kv_in[..., dc:][:, None, None, :], posv,
+                      cfg.rope_theta)[:, 0, 0]           # (B, dr)
+    C = cache["ckv"].shape[1]
+    slot = pos % C
+    cache["ckv"][:, slot] = ckv_t.to(cache["ckv"].dtype)
+    cache["kr"][:, slot] = kr_t.to(cache["kr"].dtype)
+    cache["pos"][slot] = pos
+    ckv, kr = cache["ckv"].to(f32), cache["kr"].to(f32)
+    valid = cache["pos"] >= 0
+    wkv_b = pa["wkv_b"].reshape(dc, H, dn + dv).to(f32)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_eff = torch.einsum("bqhd,chd->bqhc", q_nope.to(f32), w_uk)
+    s = (torch.einsum("bqhc,bkc->bhqk", q_eff, ckv)
+         + torch.einsum("bqhr,bkr->bhqk", q_rope.to(f32), kr))
+    s = s * ((dn + dr) ** -0.5)
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)                         # (B, H, 1, C)
+    att_c = torch.einsum("bhqk,bkc->bqhc", w, ckv)
+    o = torch.einsum("bqhc,chd->bqhd", att_c, w_uv)      # (B, 1, H, dv)
+    return x + o.reshape(B, 1, H * dv).to(x.dtype) @ pa["wo"]
 
 
 def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p, x,
@@ -161,8 +305,14 @@ def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p, x,
     chunk's K/V at slots start..start+T-1 (the caller guarantees
     start + T <= C: no ring wrap) and attends with an explicit causal ∧
     valid ∧ window mask through the decode's score -> softmax -> PV
-    composition; at T == 1 it computes exactly the decode step."""
-    check_dense_gqa(cfg, spec)
+    composition; at T == 1 it computes exactly the decode step. MLA
+    (absorbed-form cache) has no chunked path: callers take the
+    token-by-token loop."""
+    check_ported_layer(cfg, spec)
+    if cfg.mla:
+        raise NotImplementedError(
+            f"chunked prefill supports GQA attention layers only "
+            f"(kind={spec.kind!r}, mla={cfg.mla is not None})")
     B, T = x.shape[:2]
     asp = attn_spec(cfg, spec)
     q, k, v = _gqa_project(cfg, p["attn"], _apply_norm(cfg, p["norm1"], x))
@@ -186,8 +336,12 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
                        cache: dict, pos: int):
     """x (B, 1, D) at absolute position ``pos`` -> (x', cache): the new
     K/V go to ring slot ``pos % C``; a slot is attended once written, and
-    on an ``attn_local`` layer only within the window."""
-    check_dense_gqa(cfg, spec)
+    on an ``attn_local`` layer only within the window. An MLA layer
+    decodes in the absorbed form over its latent cache."""
+    check_ported_layer(cfg, spec)
+    if cfg.mla:
+        return _ffn_block(cfg, spec, p,
+                          _mla_decode(cfg, p, x, cache, pos)), cache
     B = x.shape[0]
     asp = attn_spec(cfg, spec)
     q, k, v = _gqa_project(cfg, p["attn"], _apply_norm(cfg, p["norm1"], x))

@@ -95,7 +95,8 @@ def _map_with(fn, paths, tree):
 
 
 class LM:
-    """Decoder-only language model (dense GQA stacks)."""
+    """Decoder-only language model (GQA or MLA attention, dense or MoE
+    FFNs)."""
 
     compute_dtype = torch.bfloat16
 
@@ -286,7 +287,7 @@ class LM:
 
     def supports_chunked_prefill(self) -> bool:
         """True when every layer has the chunked-prefill path (the GQA
-        attention kinds)."""
+        attention kinds; MLA takes the token-by-token :meth:`prefill`)."""
         return (self.cfg.mla is None
                 and all(s.kind in ("attn", "attn_local")
                         for s in self.specs))

@@ -37,7 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.fused_kv import append_kv
 from repro_torch.models.attention import _scale, masked_decode_attention
 from repro_torch.models.blocks import (_apply_norm, _ffn_train, _gqa_project,
-                                       attn_spec, check_dense_gqa)
+                                       attn_spec, check_ported_layer)
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.model import LM, map_tree
 from repro_torch.serve.kv_cache import (KVQuantSpec, TRASH_PAGE, append_rows,
@@ -99,9 +99,11 @@ class Engine:
                 f"(kinds={sorted(set(bad))!r}, mla={mc.mla is not None}, "
                 f"encoder={mc.encoder is not None})")
         if any(s.moe for s in model.specs):
+            # MoE capacity dispatch couples tokens across the batch, which
+            # would break mixed-vs-alone determinism
             raise ValueError("paged KV serving does not support MoE layers")
         for s in model.specs:
-            check_dense_gqa(mc, s)
+            check_ported_layer(mc, s)
 
     def cache_bytes(self) -> int:
         return pool_bytes(self.pools)

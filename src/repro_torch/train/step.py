@@ -786,7 +786,7 @@ def _metrics(loss, metrics, lr, stats, dev, group) -> Dict[str, Any]:
     the reference has no pmean without dp axes)."""
     m = torch.stack([loss.detach(), metrics["nll"].detach(),
                      torch.as_tensor(metrics["aux"], device=dev,
-                                     dtype=torch.float32),
+                                     dtype=torch.float32).detach(),
                      metrics["tokens"]])
     if group is not False:
         dist.all_reduce(m, group=group)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import MLAParams, get_smoke_config
+from repro_torch.configs.base import MLAParams, MoEParams, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import LM
@@ -17,7 +17,8 @@ from torch_test_env import port_test_env  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_trace.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_trace.py",
+    ROOT / "tools" / "train_reading.py"]
 
 
 def _imports(path: pathlib.Path):
@@ -37,8 +38,23 @@ def test_port_files_found():
     for rel in ("launch/paper_cifar.py", "models/resnet.py",
                 "configs/qwen15_32b.py", "configs/command_r_plus_104b.py",
                 "configs/chameleon_34b.py", "configs/gemma2_9b.py",
-                "configs/gemma3_27b.py"):
+                "configs/gemma3_27b.py", "models/moe.py",
+                "configs/mixtral_8x22b.py", "configs/deepseek_v2_236b.py"):
         assert port / rel in PORT_FILES, rel
+
+
+@pytest.mark.parametrize("n", [0, 3])
+def test_cut_depth_refuses_a_depth_the_config_lacks(n):
+    """``cut_depth`` (the train launcher's ``--layers``) keeps 1 to
+    num_layers layers, widths unchanged."""
+    from repro_torch.configs.base import cut_depth
+
+    cfg = get_smoke_config("deepseek-v2-236b")
+    cut = cut_depth(cfg, 1)
+    assert (cut.num_layers, cut.d_model, cut.mla) == (1, cfg.d_model, cfg.mla)
+    assert cut_depth(cfg, None) is cfg
+    with pytest.raises(ValueError, match="num_layers"):
+        cut_depth(cfg, n)
 
 
 @pytest.mark.parametrize("launcher", ["train", "serve"])
@@ -48,14 +64,15 @@ def test_launchers_refuse_unported_arch_by_name(launcher, capsys):
     from repro_torch.configs.base import list_archs
     from repro_torch.launch import train as train_launcher
 
-    assert "mixtral-8x22b" not in list_archs()
-    assert {"gemma2-9b", "qwen1.5-32b"} <= set(list_archs())
+    assert "jamba-v0.1-52b" not in list_archs()
+    assert {"gemma2-9b", "qwen1.5-32b", "mixtral-8x22b",
+            "deepseek-v2-236b"} <= set(list_archs())
     run = {"train": train_launcher.train,
            "serve": serve_launcher.serve}[launcher]
     with pytest.raises(SystemExit) as e:
-        run(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"])
+        run(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu"])
     assert e.value.code == 2
-    assert "mixtral-8x22b" in capsys.readouterr().err
+    assert "jamba-v0.1-52b" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -122,23 +139,43 @@ def test_launcher_needs_kv_quant():
     np.testing.assert_array_equal(dense["tokens"], paged["tokens"])
 
 
-@pytest.mark.parametrize("change", [{"norm": "ln"}, {"moe": True},
-                                    {"kind": "mamba"}, {"cross_attn": True},
-                                    {"kind": "rwkv"}, {"mla": MLAParams()}])
+@pytest.mark.parametrize("change", [{"norm": "ln"}, {"kind": "mamba"},
+                                    {"cross_attn": True}, {"kind": "rwkv"}])
 def test_unported_layer_kinds_point_to_the_roadmap(change):
     """A layer the port does not run is refused by name, pointing to
     ROADMAP.md as the other refusals do."""
     import dataclasses
 
-    from repro_torch.models.blocks import check_dense_gqa
+    from repro_torch.models.blocks import check_ported_layer
     from repro_torch.models.model import build_layer_specs
 
     cfg = get_smoke_config("lm-100m")
     spec = build_layer_specs(cfg)[0]
-    check_dense_gqa(cfg, spec)
-    if "norm" in change or "mla" in change:
+    check_ported_layer(cfg, spec)
+    if "norm" in change:
         cfg = dataclasses.replace(cfg, **change)
     else:
         spec = dataclasses.replace(spec, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_dense_gqa(cfg, spec)
+        check_ported_layer(cfg, spec)
+
+
+@pytest.mark.parametrize("change,message", [
+    ({"moe": MoEParams(num_experts=4, top_k=2, d_ff_expert=64),
+      "moe_every": 1}, "paged KV serving does not support MoE layers"),
+    ({"mla": MLAParams(q_lora=32, kv_lora=16, rope_head_dim=8,
+                       nope_head_dim=16, v_head_dim=16)},
+     "paged KV serving supports GQA attention stacks only"),
+])
+def test_paged_engine_refuses_moe_and_mla(change, message):
+    """MoE and MLA layers run in training and on the dense serve path;
+    the paged engine refuses them as the reference's does (MoE capacity
+    dispatch couples the tokens of a batch)."""
+    import dataclasses
+
+    model = LM(dataclasses.replace(get_smoke_config("lm-100m"), **change))
+    cfg = ServeConfig(kv_quant="orq-9", page_size=4, max_batch=1,
+                      max_pages_per_seq=2, prefill_chunk=4)
+    with pytest.raises(ValueError, match=message):
+        Engine(model, model.init(torch.Generator().manual_seed(0),
+                                 device="cpu"), cfg, device="cpu")
