@@ -218,6 +218,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             every kernel call of the EF step recorded at its dispatcher
             and held against its plain version on the same inputs (buckets
             of 512 with a ragged last row), by phase 3's rules.
+22. recurrent  jamba-v0.1-52b (28 Mamba and 4 attention layers) and
+            rwkv6-3b (32 RWKV-6 layers) at full width and full depth,
+            weights drawn on the card, each peak reckoned before the draw:
+            the serving launcher's dense path, 8 prompts of 64 tokens
+            prefilled token by token (no chunked prefill for a recurrent
+            layer, as in the reference), then 8 decode steps; prefill
+            seconds, decode p50 / p99 and tok/s, own peak, the cache
+            bytes (exactly the reference's ``init_cache(8, 128)``: K/V a
+            token of an attention layer, the recurrent state a sequence
+            of a Mamba or RWKV layer); every counter 0. Card against CPU
+            at the smoke sizes: ``mamba_forward``, a ``mamba_decode_step``
+            chain with its states, ``_wkv_scan``, ``time_mix``, the
+            channel mix and one RWKV decode step in f32 (REC_ATOL_F32),
+            then a bf16 forward (jamba routed as the CPU; rwkv6 on the
+            tokens its group norms leave well-conditioned) within
+            ATOL_BF16. Then ``--smoke`` training of each through phase
+            21's checks (launches, collectives, wire bytes, every EF-step
+            kernel call against its plain version; aux 0 for rwkv6), and
+            one full-width training forward + backward of one layer each
+            (batch 8 x 128, bf16): ms and own peak.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -3705,7 +3725,7 @@ def _record_ops(torch, calls):
     return lambda: [setattr(ops, n, f) for n, f in origs.items()]
 
 
-def _hold_exchange_calls(torch, arch, quant, calls, smi):
+def _hold_exchange_calls(torch, arch, quant, calls, smi, phase="moe_mla"):
     """The recorded kernel calls of one training step, each kernel against
     its plain version on the same inputs, by the rules of phase 3:
     ``encode_fused``'s words and both decodes equal by value, ``qdq_fused``
@@ -3774,7 +3794,7 @@ def _hold_exchange_calls(torch, arch, quant, calls, smi):
         rows.append(row)
         if bad:
             failed.append(row)
-    emit("moe_mla", what="train step's kernel calls vs plain", arch=arch,
+    emit(phase, what="train step's kernel calls vs plain", arch=arch,
          quant=quant, calls=rows, device=smi)
     if failed:
         raise AssertionError(f"train {arch} {quant}: kernels disagree with "
@@ -3782,20 +3802,23 @@ def _hold_exchange_calls(torch, arch, quant, calls, smi):
     return rows
 
 
-def _moe_train(torch, arch, smi):
+def _moe_train(torch, arch, smi, phase="moe_mla"):
     """``launch.train --arch <arch> --smoke``, orq-9 and BinGrad-b, 2
     steps then 1 with error feedback, on a world of one: finite losses,
-    aux > 0, 4 collective launches a step, the fused path's kernel
-    launches, wire bytes per worker equal to ``policy_stats`` on the
-    model's path sizes. Every kernel call of the EF step (encodes, qdq,
-    decodes) is recorded and held against its plain version."""
+    aux > 0 where the model has MoE layers (0 where it has none), 4
+    collective launches a step, the fused path's kernel launches, wire
+    bytes per worker equal to ``policy_stats`` on the model's path sizes.
+    Every kernel call of the EF step (encodes, qdq, decodes) is recorded
+    and held against its plain version."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.core.comm.exchange import policy_stats
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.launch import train as launcher
     from repro_torch.models import LM
 
-    sizes = _path_sizes(LM(get_smoke_config(arch)))
+    model = LM(get_smoke_config(arch))
+    sizes = _path_sizes(model)
+    has_moe = any(s.moe for s in model.specs)
     total = {}
     for quant, expect in MOE_TRAIN_EXPECT.items():
         wire = policy_stats(QuantPolicy.parse(quant, bucket_size=512),
@@ -3833,13 +3856,14 @@ def _moe_train(torch, arch, smi):
                              replicas_in_sync=r["replicas_in_sync"]))
         launches = _read_counters()
         want = _expect(expect)
-        emit("moe_mla", what="train --smoke", arch=arch, quant=quant,
+        emit(phase, what="train --smoke", arch=arch, quant=quant,
              runs=rows, launches=launches, expected_launches=want,
              wire_expected=wire, device=smi)
         for row in rows:
             if (not all(x == x and abs(x) < float("inf")
                         for x in row["losses"])
-                    or not all(a > 0 for a in row["aux"])
+                    or not all((a > 0) if has_moe else (a == 0)
+                               for a in row["aux"])
                     or row["collective_launches_per_step"] != 4
                     or row["wire_bytes_per_worker"] != wire
                     or not row["replicas_in_sync"]):
@@ -3847,7 +3871,7 @@ def _moe_train(torch, arch, smi):
         if launches != want:
             raise AssertionError(f"train {arch} {quant}: launches "
                                  f"{launches} != {want}")
-        _hold_exchange_calls(torch, arch, quant, calls, smi)
+        _hold_exchange_calls(torch, arch, quant, calls, smi, phase)
         del calls
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -3865,6 +3889,354 @@ def run_moe_mla(torch, dev):
         _moe_card_vs_cpu(torch, dev, arch, smi)
         for k, v in _moe_train(torch, arch, smi).items():
             total[k] += v
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 22: Mamba (jamba-v0.1-52b) and RWKV-6 (rwkv6-3b)
+# ---------------------------------------------------------------------------
+
+#: full-width parameters, ``init_cache(8, 128)`` bytes, the dense path's
+#: bytes a sequence of one recurrent layer and a token of one attention
+#: layer, and the parameters of the one-layer training cut
+RECURRENT = {
+    "jamba-v0.1-52b": dict(n_params=4_358_066_176, cache=145_229_824,
+                           state=573_440, token=4096,
+                           train_params=642_187_264),
+    "rwkv6-3b": dict(n_params=3_099_609_600, cache=170_393_600,
+                     state=665_600, token=0, train_params=421_923_840)}
+REC_ATOL_F32 = 1e-5
+#: a head whose group-norm input variance is under 10 x eps at some token
+#: turns its output around on a 1-ulp difference (tests/test_torch_rwkv.py)
+GN_COND = 1e-4
+REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_REPS = 8, 128, 3
+
+
+def _recurrent_serve(torch, dev, arch, smi):
+    """One arch at full width and full depth on the dense path through the
+    serving launcher's ``_serve_dense``: MOE_BATCH prompts of MOE_PROMPT
+    tokens prefilled token by token (the launcher falls back from the
+    chunk it is given, as the reference's does), then MOE_GEN - 1 decode
+    steps. The cache must read the reference's ``init_cache(8, 128)``
+    bytes; counters zeroed just before must read 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.utils.pytree import tree_leaves
+
+    want = RECURRENT[arch]
+    cfg = get_config(arch)
+    model = LM(cfg)
+    ap = model.abstract_params()
+    n_params = sum(t.numel() for t in tree_leaves(ap))
+    biggest = max(t.numel() for t in tree_leaves(ap))
+    # the f32 draw, one leaf's stacking copy, then the bf16 copy beside it
+    reckoned = 4 * n_params + 4 * biggest + 2 * n_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    params = map_tree(lambda t: t.to(torch.bfloat16), params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    args = launcher.parse_args([
+        "--arch", arch, "--batch", str(MOE_BATCH), "--prompt-len",
+        str(MOE_PROMPT), "--gen", str(MOE_GEN), "--max-len",
+        str(MOE_MAX_LEN), "--prefill-chunk", str(MOE_PROMPT)])
+    prompt = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).numpy().astype("int32")
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r = launcher._serve_dense(args, model, params, prompt, dev)
+    launches = _read_counters()
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    embed_bytes = 2 * cfg.vocab_size * cfg.d_model
+    kinds = [s.kind for s in model.specs]
+    row = dict(arch=arch, layers=cfg.num_layers,
+               layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+               # the reference's MoE flag falls on layers with no FFN
+               moe_layers_run=sum(s.moe and s.kind in ("attn", "attn_local")
+                                  for s in model.specs),
+               n_params=n_params, bf16_weight_bytes=2 * n_params,
+               d_model=cfg.d_model, init_s=init_s,
+               init_peak_bytes=init_peak,
+               init_peak_reckoned_bytes=reckoned,
+               serve_peak_above_start=serve_peak,
+               prefill_chunk=r["prefill_chunk"],
+               prefill_tokens=r["prefill_tokens"], prefill_s=r["prefill_s"],
+               prefill_tok_s=r["prefill_tok_s"],
+               decode_tokens=r["decode_tokens"],
+               decode_step_p50_ms=r["step_p50_ms"],
+               decode_step_p99_ms=r["step_p99_ms"],
+               decode_tok_s=r["decode_tok_s"],
+               weights_read_less_embed_ms=(2 * n_params - embed_bytes)
+               / HBM_BYTES_PER_S * 1e3,
+               token_bytes=r["token_bytes"], state_bytes=r["state_bytes"],
+               cache_bytes=r["cache_bytes"],
+               cache_bytes_expected=want["cache"], launches=launches,
+               tokens_sha256=r["sha256"], device=smi)
+    emit("recurrent", what="serve, dense path, full width and depth", **row)
+    toks = r["tokens"]
+    if any(launches.values()):
+        raise AssertionError(f"{arch} dense serve launched kernels "
+                             f"{launches}")
+    if toks.shape != (MOE_BATCH, MOE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+    if (n_params != want["n_params"] or r["prefill_chunk"] != 0
+            or r["cache_bytes"] != want["cache"]
+            or r["state_bytes"] != want["state"]
+            or r["token_bytes"] != want["token"]):
+        raise AssertionError(f"{arch}: serve accounting {row}")
+    del params, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def _off_init(torch, p, g, limit):
+    """The layer's small leaves (norm scales, biases, mixes, decays) moved
+    off their constant init by N(0, 0.1^2), so that every term acts."""
+    for n, t in p.items():
+        if not isinstance(t, dict) and t.numel() <= limit:
+            p[n] = t + 0.1 * torch.randn(t.shape, generator=g)
+    return p
+
+
+def _recurrent_f32_errors(torch, dev, cfg, spec, p, g):
+    """The layer's functions in float32 at the smoke size, card against
+    CPU on the same inputs -> {what: largest |difference| over the CPU's
+    largest magnitude}; decode shifts must be bit-equal (-1 if not)."""
+    from repro_torch.models import blocks, rwkv, ssm
+    from repro_torch.models.model import map_tree
+
+    to_dev = lambda tree: map_tree(lambda t: t.to(dev), tree)  # noqa: E731
+
+    def err(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    D, out = cfg.d_model, {}
+    if spec.kind == "mamba":
+        pm = {k: v for k, v in p.items() if k != "norm"}
+        pd, ms = to_dev(pm), blocks.mamba_spec(cfg)
+        for S in (64, 300):
+            x = torch.randn((2, S, D), generator=g)
+            out[f"mamba_forward_S{S}"] = err(
+                ssm.mamba_forward(pd, x.to(dev), ms),
+                ssm.mamba_forward(pm, x, ms))
+        x = torch.randn((3, 12, D), generator=g)
+        st = ssm.init_mamba_state(3, ms, torch.float32, device="cpu")
+        sd = ssm.init_mamba_state(3, ms, torch.float32, device=dev)
+        worst = 0.0
+        for i in range(12):
+            want, st = ssm.mamba_decode_step(pm, x[:, i:i + 1], st, ms)
+            got, sd = ssm.mamba_decode_step(pd, x[:, i:i + 1].to(dev), sd,
+                                            ms)
+            worst = max(worst, err(got, want))
+        out.update(mamba_decode_chain12_out=worst,
+                   mamba_decode_ssm=err(sd["ssm"], st["ssm"]),
+                   mamba_decode_conv=err(sd["conv"], st["conv"]))
+        return out
+    rs = blocks.rwkv_spec(cfg)
+    pd = to_dev(p)
+    B, S, H, hd = 2, 128, rs.num_heads, rs.head_dim
+    r, k, v = (torch.randn((B, S, H, hd), generator=g) for _ in range(3))
+    logw = -torch.exp(torch.randn((B, S, H, hd), generator=g) - 1.0)
+    s0 = torch.randn((B, H, hd, hd), generator=g)
+    want = rwkv._wkv_scan(r, k, v, None, p["u"], rs.chunk, s0, logw=logw)
+    got = rwkv._wkv_scan(*(t.to(dev) for t in (r, k, v)), None, pd["u"],
+                         rs.chunk, s0.to(dev), logw=logw.to(dev))
+    out.update(wkv_scan_out=err(got[0], want[0]),
+               wkv_scan_state=err(got[1], want[1]))
+    x = torch.randn((2, 64, D), generator=g)
+    out["time_mix"] = err(rwkv.time_mix(pd, x.to(dev), rs),
+                          rwkv.time_mix(p, x, rs))
+    out["channel_mix_train"] = err(rwkv.channel_mix_train(pd, x.to(dev)),
+                                   rwkv.channel_mix_train(p, x))
+    xt, ht, tsh, csh = (torch.randn((3, 1, D), generator=g)
+                        for _ in range(4))
+    wkv = torch.randn((3, H, hd, hd), generator=g)
+    tw, tws = rwkv.time_mix_decode(p, xt, {"wkv": wkv, "shift": tsh[:, 0]},
+                                   rs)
+    tg, tgs = rwkv.time_mix_decode(pd, xt.to(dev), {
+        "wkv": wkv.to(dev), "shift": tsh[:, 0].to(dev)}, rs)
+    cw, cws = rwkv.channel_mix_decode(p, ht, {"shift": csh[:, 0]})
+    cg, cgs = rwkv.channel_mix_decode(pd, ht.to(dev),
+                                      {"shift": csh[:, 0].to(dev)})
+    out.update(decode_time_mix=err(tg, tw), decode_wkv=err(tgs["wkv"],
+                                                           tws["wkv"]),
+               decode_channel_mix=err(cg, cw))
+    if not (torch.equal(tgs["shift"].cpu(), tws["shift"])
+            and torch.equal(cgs["shift"].cpu(), cws["shift"])):
+        out["decode_shifts_bit_equal"] = -1.0
+    return out
+
+
+def _group_norm_log(rwkv):
+    """Record every ``rwkv._group_norm`` call's smallest per-head
+    variance of its input, (B, S), on its device; returns (log,
+    restore)."""
+    log, orig = [], rwkv._group_norm
+
+    def rec(x, scale, n_heads, eps=1e-5):
+        B, S, _ = x.shape
+        xh = x.reshape(B, S, n_heads, -1).float()
+        log.append(((xh - xh.mean(-1, keepdim=True)) ** 2).mean(-1)
+                   .min(-1).values.detach())
+        return orig(x, scale, n_heads, eps)
+
+    rwkv._group_norm = rec
+    return log, lambda: setattr(rwkv, "_group_norm", orig)
+
+
+def _recurrent_card_vs_cpu(torch, dev, arch, smi):
+    """At the ``SMOKE`` sizes: the recurrent layer's functions in float32
+    (``_recurrent_f32_errors``, each within REC_ATOL_F32), then a bf16
+    forward of the model, card against CPU: jamba's MoE layer routed as
+    the CPU routed it (its own routing's agreement printed, every flip a
+    near-tie), rwkv6's logits held on the tokens the CPU's group norms
+    leave well-conditioned (GN_COND, as tests/test_torch_rwkv.py), all
+    within ATOL_BF16 of the CPU's largest logit."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import LM, blocks, moe, rwkv
+    from repro_torch.models.model import map_tree
+
+    cfg = get_smoke_config(arch)
+    model = LM(cfg)
+    g = torch.Generator().manual_seed(5)
+    spec = next(s for s in model.specs if s.kind in ("mamba", "rwkv"))
+    p = _off_init(torch, blocks.init_layer(cfg, spec, g), g,
+                  8 * cfg.d_model * 2)
+    errs = _recurrent_f32_errors(torch, dev, cfg, spec, p, g)
+    ok = all(0 <= e <= REC_ATOL_F32 for e in errs.values())
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    pd = map_tree(lambda t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(4))
+    n_moe = sum(s.moe for s in model.specs)
+    runs = []
+    for where, pp, force in (("cpu", params, False), (dev, pd, False),
+                             (dev, pd, True)):
+        log, restore = _moe_routing_log(moe)
+        gn_log, gn_restore = _group_norm_log(rwkv)
+        top_k = moe.top_k
+        if force and n_moe:           # the card routed as the CPU routed
+            forced = iter([c["topi"].to(dev) for c in runs[0][1]])
+
+            def routed_as_cpu(probs, k):
+                idx = next(forced)
+                return torch.gather(probs, -1, idx), idx
+
+            moe.top_k = routed_as_cpu
+        try:
+            lg, _ = model.logits(pp, toks.to(where))
+        finally:
+            restore()
+            gn_restore()
+            moe.top_k = top_k
+        runs.append((lg.float().cpu(), log, [v.cpu() for v in gn_log]))
+    (want, log_cpu, gn_cpu), (own, log_dev, _), (got, _, _) = runs
+    B, S = toks.shape
+    keep = torch.ones((B, S), dtype=torch.bool)
+    for i, var in enumerate(gn_cpu):
+        for b, t in (var < GN_COND).nonzero().tolist():
+            keep[b, t:t + 2 if i == len(gn_cpu) - 1 else S] = False
+    flips = _route_flips(log_cpu, log_dev) if n_moe else []
+    bound = ATOL_BF16 * float(want.abs().max())
+    err = float((got - want)[keep].abs().max())
+    errs.update(bf16_logits_max_abs_diff=err, bf16_logits_bound=bound,
+                bf16_own_routing_max_abs_diff=float(
+                    (own - want)[keep].abs().max()),
+                tokens_held=int(keep.sum()), tokens=keep.numel(),
+                routing_agreement_by_layer=[f[0] for f in flips],
+                flip_margins_by_layer=[f[1] for f in flips],
+                group_norm_min_var_by_layer=[float(v.min()) for v in gn_cpu])
+    ok &= (err <= bound and bool(torch.isfinite(got).all())
+           and keep.float().mean() >= 0.95
+           and all(share >= ROUTE_AGREE and all(m < ROUTE_TIE for m in mg)
+                   for share, mg in flips))
+    emit("recurrent", what="card vs CPU at SMOKE", arch=arch, ok=bool(ok),
+         atol_f32=REC_ATOL_F32, **errs, device=smi)
+    if not ok:
+        raise AssertionError(f"{arch}: card and CPU differ: {errs}")
+    return errs
+
+
+def _recurrent_train_full(torch, dev, arch, smi):
+    """One full-width training forward + backward of ``LM.loss``, depth
+    cut to its first layer (jamba: one Mamba layer, rwkv6: one RWKV
+    layer), batch REC_TRAIN_BATCH x REC_TRAIN_SEQ, bf16 compute, no
+    exchange: ms per step (CUDA-synchronised wall clock, the median of
+    REC_TRAIN_REPS after a warm-up) and the step's own peak above the
+    f32 params; the loss and every gradient finite."""
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.models import LM
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = cut_depth(get_config(arch), 1)
+    model = LM(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    n_params = sum(t.numel() for t in leaves)
+    toks = torch.randint(0, cfg.vocab_size, (REC_TRAIN_BATCH, REC_TRAIN_SEQ),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+
+    def step():
+        loss, _ = model.loss(params, {"tokens": toks})
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss, grads = step()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(REC_TRAIN_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del grads
+    peak = torch.cuda.max_memory_allocated() - base
+    row = dict(arch=arch, layers=1, layer_kind=model.specs[0].kind,
+               n_params=n_params, batch=REC_TRAIN_BATCH, seq=REC_TRAIN_SEQ,
+               loss=float(loss.detach()), finite=finite,
+               step_ms=statistics.median(times), step_ms_all=times,
+               step_peak_above_params=peak, params_f32_bytes=4 * n_params,
+               device=smi)
+    emit("recurrent", what="train forward + backward, full width, 1 layer",
+         **row)
+    if not finite or n_params != RECURRENT[arch]["train_params"]:
+        raise AssertionError(f"{arch} full-width training step: {row}")
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_recurrent(torch, dev):
+    """Phase 22: jamba-v0.1-52b and rwkv6-3b served at full width and full
+    depth on the dense path, the card against the CPU at their smoke
+    sizes, their smoke training through the ported exchange's kernels
+    and one full-width one-layer training step each."""
+    smi = nvidia_smi()
+    total = {k: 0 for k in _counters()}
+    for arch in RECURRENT:
+        _recurrent_serve(torch, dev, arch, smi)
+        _recurrent_card_vs_cpu(torch, dev, arch, smi)
+        for k, v in _moe_train(torch, arch, smi, "recurrent").items():
+            total[k] += v
+        _recurrent_train_full(torch, dev, arch, smi)
     return total
 
 
@@ -3985,6 +4357,8 @@ def main() -> int:
     lap("serve_archs")
     moe_launches = run_moe_mla(torch, dev)
     lap("moe_mla")
+    rec_launches = run_recurrent(torch, dev)
+    lap("recurrent")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -4000,7 +4374,8 @@ def main() -> int:
              "train_async": async_launches,
              "paper_cifar": cifar_launches,
              "serve_archs": arch_launches,
-             "moe_mla": moe_launches}
+             "moe_mla": moe_launches,
+             "recurrent": rec_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -123,6 +123,8 @@ _REGISTRY = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 

@@ -18,8 +18,9 @@ Weights are random, drawn from ``torch.Generator(seed)``, and served in
 bf16; prompts are drawn from ``torch.Generator(seed + 1)``. Timing starts
 AFTER a warm-up (a step on a throwaway cache, or a warm-up request), and
 prefill / decode throughput are reported separately, with the decode
-steps' p50 / p99 latency, the cache bytes and a sha256 digest of the
-generated tokens.
+steps' p50 / p99 latency, the cache bytes (K/V bytes per token of an
+attention layer; a Mamba or RWKV layer's recurrent state per sequence)
+and a sha256 digest of the generated tokens.
 
     python -m repro_torch.launch.serve --batch 8 --prompt-len 128 \\
         --gen 32 --max-len 512 --prefill-chunk 64
@@ -41,6 +42,7 @@ import torch
 from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
+from repro_torch.models.blocks import mamba_spec, rwkv_spec
 from repro_torch.models.model import map_tree
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.kv_cache import token_bytes_ratio
@@ -58,11 +60,30 @@ def _latency(step_s) -> dict:
 
 
 def dense_token_bytes(cfg) -> int:
-    """bf16 cache bytes per token and layer on the dense path: K and V of
-    every KV head, or MLA's compressed latent and its rope key."""
+    """bf16 cache bytes per token and attention layer on the dense path: K
+    and V of every KV head, or MLA's compressed latent and its rope key; 0
+    for a stack with no attention layer (rwkv6 has no KV heads)."""
+    if not any(k in ("attn", "attn_local") for k in cfg.layer_pattern):
+        return 0
     if cfg.mla is not None:
         return (cfg.mla.kv_lora + cfg.mla.rope_head_dim) * 2
     return 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+
+
+def dense_state_bytes(cfg) -> int:
+    """Cache bytes per sequence of one Mamba or RWKV layer on the dense
+    path, whatever the context: Mamba's bf16 conv window and float32 SSM
+    state, or RWKV's float32 WKV state and its two bf16 token shifts; 0
+    for a stack with neither."""
+    kinds = set(cfg.layer_pattern)
+    if "mamba" in kinds:
+        ms = mamba_spec(cfg)
+        return ((ms.d_conv - 1) * ms.d_inner * 2
+                + ms.d_inner * ms.d_state * 4)
+    if "rwkv" in kinds:
+        rs = rwkv_spec(cfg)
+        return rs.num_heads * rs.head_dim ** 2 * 4 + 2 * cfg.d_model * 2
+    return 0
 
 
 def _serve_dense(args, model, params, prompt, device) -> dict:
@@ -141,6 +162,7 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
                            for gc in cache for c in gc.values()
                            for t in c.values()),
         "token_bytes": kv_bytes,
+        "state_bytes": dense_state_bytes(cfg),
         "token_bytes_ratio": 1.0,
         "forward_calls": forward_calls,
         "layers": cfg.num_layers,
@@ -187,6 +209,7 @@ def _serve_paged(args, model, params, prompt, device) -> dict:
         **_latency(eng.decode_times),
         "cache_bytes": eng.cache_bytes(),
         "token_bytes": eng.kvq.token_bytes(),
+        "state_bytes": 0,
         "token_bytes_ratio": token_bytes_ratio(eng.kvq),
         "forward_calls": eng.forward_calls,
         "layers": model.cfg.num_layers,
@@ -256,8 +279,11 @@ def main(argv=None) -> int:
     if r["step_p50_ms"] is not None:
         print(f"step latency p50 {r['step_p50_ms']:.1f}ms "
               f"p99 {r['step_p99_ms']:.1f}ms")
+    state = (f", {r['state_bytes']} per sequence and recurrent layer"
+             if r["state_bytes"] else "")
     print(f"cache bytes: {r['cache_bytes']} "
-          f"({r['token_bytes']} per token-layer, {r['path']} path)")
+          f"({r['token_bytes']} per token and attention layer{state}, "
+          f"{r['path']} path)")
     print("tokens sha256:", r["sha256"])
     print(json.dumps({k: v for k, v in r.items()
                       if k not in ("tokens", "engine")}))

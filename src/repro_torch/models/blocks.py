@@ -1,8 +1,9 @@
-"""Per-layer parameters and the attention layers (GQA or MLA, each with a
-dense or a Mixture-of-Experts FFN): the pieces the serving engine
-applies, the training forward ``apply_layer_train`` and the dense
-ring-buffer decode (``init_layer_cache``, ``apply_layer_prefill_chunk``,
-``apply_layer_decode``), as in the reference's ``models/blocks.py``.
+"""Per-layer parameters and the layers: attention (GQA or MLA, each with
+a dense or a Mixture-of-Experts FFN), Mamba and RWKV-6. The pieces the
+serving engine applies, the training forward ``apply_layer_train`` and
+the dense ring-buffer decode (``init_layer_cache``,
+``apply_layer_prefill_chunk``, ``apply_layer_decode``), as in the
+reference's ``models/blocks.py``.
 
 The ring-buffer cache of a GQA layer is ``{"k", "v": (B, C, KV, hd)
 bf16, "pos": (C,) int32}``: slot ``pos % C`` holds the token at absolute
@@ -12,7 +13,13 @@ slots. An MLA layer caches the compressed latent instead, ``{"ckv": (B,
 C, kv_lora), "kr": (B, C, rope_head_dim), "pos"}`` (``kr`` roped when it
 is written), and decodes in the absorbed form. The decode functions write
 the new rows into the cache in place (the reference donates the cache
-through its jit) and return it."""
+through its jit) and return it.
+
+A Mamba or RWKV layer's cache is its recurrent state (``ssm.
+init_mamba_state``, ``rwkv.init_rwkv_state``): its decode returns new
+state tensors, which the caller writes back into the cache. These layers
+have no chunked prefill (a prompt prefills token by token), as in the
+reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +27,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (NEG_INF, AttnSpec,
                                          chunked_attention,
                                          decode_attention,
@@ -55,6 +64,19 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
     )
 
 
+def mamba_spec(cfg: ModelConfig) -> ssm_mod.MambaSpec:
+    m = cfg.mamba
+    return ssm_mod.MambaSpec(d_model=cfg.d_model, d_state=m.d_state,
+                             d_conv=m.d_conv, expand=m.expand)
+
+
+def rwkv_spec(cfg: ModelConfig) -> rwkv_mod.RWKVSpec:
+    r = cfg.rwkv
+    return rwkv_mod.RWKVSpec(d_model=cfg.d_model, head_dim=r.head_dim,
+                             lora_mix=r.lora_mix, lora_decay=r.lora_decay,
+                             chunk=r.chunk)
+
+
 def moe_spec(cfg: ModelConfig) -> MoESpec:
     m = cfg.moe
     return MoESpec(num_experts=m.num_experts, top_k=m.top_k,
@@ -64,15 +86,16 @@ def moe_spec(cfg: ModelConfig) -> MoESpec:
 
 
 def check_ported_layer(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs attention layers (GQA or MLA, dense or MoE FFN) with
-    RMSNorm; Mamba, RWKV, cross-attention and layer norm are refused."""
-    if (spec.kind not in ("attn", "attn_local") or cfg.norm != "rms"
-            or spec.cross_attn):
+    """The port runs attention layers (GQA or MLA, dense or MoE FFN),
+    Mamba and RWKV-6 layers, with RMSNorm; cross-attention and layer norm
+    are refused."""
+    if (spec.kind not in ("attn", "attn_local", "mamba", "rwkv")
+            or cfg.norm != "rms" or spec.cross_attn):
         raise NotImplementedError(
-            f"repro_torch ports attention layers with RMSNorm only "
-            f"(kind={spec.kind!r}, norm={cfg.norm!r}, "
-            f"cross_attn={spec.cross_attn}); Mamba, RWKV, cross-attention "
-            f"and layer norm are not ported yet (see ROADMAP.md)")
+            f"repro_torch ports attention, Mamba and RWKV layers with "
+            f"RMSNorm only (kind={spec.kind!r}, norm={cfg.norm!r}, "
+            f"cross_attn={spec.cross_attn}); cross-attention and layer norm "
+            f"are not ported yet (see ROADMAP.md)")
 
 
 def _init_attn(cfg: ModelConfig, gen) -> dict:
@@ -128,11 +151,60 @@ def _init_ffn(cfg: ModelConfig, gen, spec: LayerSpec) -> dict:
             "wo": dense_init(gen, (F, D))}
 
 
+def _init_mamba(cfg: ModelConfig, gen) -> dict:
+    D, ms = cfg.d_model, mamba_spec(cfg)
+    d_in, N, rank = ms.d_inner, ms.d_state, ms.rank
+    return {
+        "norm": {"scale": torch.zeros(D)},
+        "in_proj": dense_init(gen, (D, 2 * d_in)),
+        "conv_w": dense_init(gen, (ms.d_conv, d_in)) * 0.1,
+        "conv_b": torch.zeros(d_in),
+        "x_proj": dense_init(gen, (d_in, rank + 2 * N)),
+        "dt_proj": dense_init(gen, (rank, d_in)),
+        "dt_bias": torch.full((d_in,), -4.6),      # softplus ~ 0.01
+        "A_log": torch.log(torch.arange(1, N + 1, dtype=torch.float32)
+                           ).repeat(d_in, 1),
+        "D": torch.ones(d_in),
+        "out_proj": dense_init(gen, (d_in, D)),
+    }
+
+
+def _init_rwkv(cfg: ModelConfig, spec: LayerSpec, gen) -> dict:
+    D, rs = cfg.d_model, rwkv_spec(cfg)
+    H, hd, Lm, Ld = rs.num_heads, rs.head_dim, rs.lora_mix, rs.lora_decay
+    F = spec.d_ff
+    return {
+        "norm1": {"scale": torch.zeros(D)},
+        "norm2": {"scale": torch.zeros(D)},
+        "tm_mu": torch.full((6, D), 0.5),
+        "tm_w1": dense_init(gen, (D, 5 * Lm)) * 0.1,
+        "tm_w2": dense_init(gen, (5, Lm, D), in_axis=1) * 0.1,
+        "w0": torch.full((D,), -2.0),
+        "dec_w1": dense_init(gen, (D, Ld)) * 0.1,
+        "dec_w2": dense_init(gen, (Ld, D)) * 0.1,
+        "u": dense_init(gen, (H, hd)),
+        "wr": dense_init(gen, (D, D)),
+        "wk": dense_init(gen, (D, D)),
+        "wv": dense_init(gen, (D, D)),
+        "wg": dense_init(gen, (D, D)),
+        "ln_x": torch.ones(D),
+        "wo": dense_init(gen, (D, D)),
+        "cm_mu_k": torch.full((D,), 0.5),
+        "cm_mu_r": torch.full((D,), 0.5),
+        "ck": dense_init(gen, (D, F)),
+        "cv": dense_init(gen, (F, D)),
+        "cr": dense_init(gen, (D, D)),
+    }
+
+
 def init_layer(cfg: ModelConfig, spec: LayerSpec,
                gen: torch.Generator) -> dict:
-    """Float32 parameters of one attention layer, in the reference's
-    layout."""
+    """Float32 parameters of one layer, in the reference's layout."""
     check_ported_layer(cfg, spec)
+    if spec.kind == "mamba":
+        return _init_mamba(cfg, gen)
+    if spec.kind == "rwkv":
+        return _init_rwkv(cfg, spec, gen)
     D = cfg.d_model
     return {
         "norm1": {"scale": torch.zeros(D)},
@@ -144,6 +216,15 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec,
 
 def _apply_norm(cfg: ModelConfig, p, x):
     return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def _norm_of_sum(cfg: ModelConfig, p, x, y):
+    """norm(x + y), of the float32 sum: where a bf16 residual add feeds
+    only a norm's cast to float32, XLA computes the add unrounded (the
+    rounded sum still feeds the residual). Within an RWKV layer; the
+    other layers round the sum first."""
+    return rms_norm(x.float() + y.float(), p["scale"],
+                    cfg.norm_eps).to(x.dtype)
 
 
 def _gqa_project(cfg: ModelConfig, p, x):
@@ -211,9 +292,24 @@ def _attn_block_train(cfg: ModelConfig, spec: LayerSpec, p, x):
     return o.reshape(B, S, -1) @ p["attn"]["wo"]
 
 
+def _without_norm(p):
+    return {k: v for k, v in p.items() if k != "norm"}
+
+
 def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
-    """x (B,S,D) -> (x', aux_loss): pre-norm attention, then the FFN."""
+    """x (B,S,D) -> (x', aux_loss): pre-norm attention, then the FFN; a
+    Mamba layer is its mixer alone (no FFN), an RWKV layer its time mix
+    then its channel mix."""
     check_ported_layer(cfg, spec)
+    if spec.kind == "mamba":
+        return x + ssm_mod.mamba_forward(
+            _without_norm(p), _apply_norm(cfg, p["norm"], x),
+            mamba_spec(cfg)), 0.0
+    if spec.kind == "rwkv":
+        tm = rwkv_mod.time_mix(p, _apply_norm(cfg, p["norm1"], x),
+                               rwkv_spec(cfg))
+        return x + tm + rwkv_mod.channel_mix_train(
+            p, _norm_of_sum(cfg, p["norm2"], x, tm)), 0.0
     h = x + _attn_block_train(cfg, spec, p, _apply_norm(cfg, p["norm1"], x))
     y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y, aux
@@ -226,9 +322,16 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype=torch.bfloat16,
                      device=None) -> dict:
-    """One attention layer's empty ring-buffer cache: K/V heads, or MLA's
-    compressed latent (``ckv``, ``kr``)."""
+    """One layer's empty cache: K/V heads in a ring buffer, MLA's
+    compressed latent (``ckv``, ``kr``), or a Mamba / RWKV layer's zero
+    state (``max_len`` unused)."""
     check_ported_layer(cfg, spec)
+    if spec.kind == "mamba":
+        return ssm_mod.init_mamba_state(batch, mamba_spec(cfg), dtype,
+                                        device=device)
+    if spec.kind == "rwkv":
+        return rwkv_mod.init_rwkv_state(batch, rwkv_spec(cfg), dtype,
+                                        device=device)
     C = min(max_len, cfg.window) if spec.kind == "attn_local" else max_len
     if cfg.mla:
         m = cfg.mla
@@ -307,9 +410,10 @@ def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p, x,
     valid ∧ window mask through the decode's score -> softmax -> PV
     composition; at T == 1 it computes exactly the decode step. MLA
     (absorbed-form cache) has no chunked path: callers take the
-    token-by-token loop."""
+    token-by-token loop, and so do Mamba and RWKV (stateful
+    recurrences)."""
     check_ported_layer(cfg, spec)
-    if cfg.mla:
+    if spec.kind in ("mamba", "rwkv") or cfg.mla:
         raise NotImplementedError(
             f"chunked prefill supports GQA attention layers only "
             f"(kind={spec.kind!r}, mla={cfg.mla is not None})")
@@ -337,8 +441,26 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
     """x (B, 1, D) at absolute position ``pos`` -> (x', cache): the new
     K/V go to ring slot ``pos % C``; a slot is attended once written, and
     on an ``attn_local`` layer only within the window. An MLA layer
-    decodes in the absorbed form over its latent cache."""
+    decodes in the absorbed form over its latent cache. A Mamba or RWKV
+    layer returns its new state (the normed inputs of this token as RWKV's
+    shifts) instead of writing into ``cache``."""
     check_ported_layer(cfg, spec)
+    if spec.kind == "mamba":
+        y, st = ssm_mod.mamba_decode_step(
+            _without_norm(p), _apply_norm(cfg, p["norm"], x), cache,
+            mamba_spec(cfg))
+        return x + y, st
+    if spec.kind == "rwkv":
+        rs = rwkv_spec(cfg)
+        tm, tm_st = rwkv_mod.time_mix_decode(
+            p, _apply_norm(cfg, p["norm1"], x),
+            {"wkv": cache["wkv"], "shift": cache["tm_shift"]}, rs)
+        cm, cm_st = rwkv_mod.channel_mix_decode(
+            p, _norm_of_sum(cfg, p["norm2"], x, tm),
+            {"shift": cache["cm_shift"]})
+        return x + tm + cm, {"wkv": tm_st["wkv"],
+                             "tm_shift": tm_st["shift"],
+                             "cm_shift": cm_st["shift"]}
     if cfg.mla:
         return _ffn_block(cfg, spec, p,
                           _mla_decode(cfg, p, x, cache, pos)), cache

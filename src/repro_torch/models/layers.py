@@ -52,6 +52,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) in x's dtype, rounded after each op: the
+    reference's ``jax.nn.sigmoid`` as XLA runs it (in bf16,
+    ``torch.sigmoid`` rounds once and differs from it in about a third of
+    the values). x is clamped at -88 inside the exp, where the value is 0
+    either way, so that no inf reaches the backward."""
+    return 1 / (1 + torch.exp(-torch.clamp(x, min=-88.0)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), rounded after each op (``jax.nn.silu``)."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) + log1p(exp(-|x|)), rounded after each op: the
+    reference's ``jax.nn.softplus`` (``jnp.logaddexp(x, 0)``)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # jax.nn.gelu is the tanh approximation by default
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
          "relu": F.relu}

@@ -96,7 +96,7 @@ def _map_with(fn, paths, tree):
 
 class LM:
     """Decoder-only language model (GQA or MLA attention, dense or MoE
-    FFNs)."""
+    FFNs, Mamba and RWKV-6 layers)."""
 
     compute_dtype = torch.bfloat16
 
@@ -263,14 +263,19 @@ class LM:
         return x
 
     def _run_cached(self, params, cache, x, layer_fn):
-        """Every layer in order, each with its view of ``cache`` (updated
-        in place), then the final norm and the head -> f32 logits."""
+        """Every layer in order, each with its view of ``cache``, then the
+        final norm and the head -> f32 logits. An attention layer writes
+        its view in place; the new state tensors a Mamba or RWKV layer
+        returns are copied into it."""
         for g, gp, gc in zip(self.groups, params["groups"], cache):
             for r in range(g.repeats):          # the reference's scan
                 for j, spec in enumerate(g.unit):
                     pj = map_tree(lambda t: self._cast(t[r]), gp[f"pos{j}"])
                     cj = {k: t[r] for k, t in gc[f"pos{j}"].items()}
-                    x, _ = layer_fn(spec, pj, x, cj)
+                    x, new = layer_fn(spec, pj, x, cj)
+                    for k, t in new.items():
+                        if t is not cj[k]:
+                            cj[k].copy_(t)
         x = self._final_norm(self._cast(params["final_norm"]), x)
         lg = (x @ self._head(params).to(x.dtype)).to(torch.float32)
         return softcap(lg, self.cfg.final_softcap)
@@ -287,7 +292,8 @@ class LM:
 
     def supports_chunked_prefill(self) -> bool:
         """True when every layer has the chunked-prefill path (the GQA
-        attention kinds; MLA takes the token-by-token :meth:`prefill`)."""
+        attention kinds; MLA, Mamba and RWKV take the token-by-token
+        :meth:`prefill`)."""
         return (self.cfg.mla is None
                 and all(s.kind in ("attn", "attn_local")
                         for s in self.specs))

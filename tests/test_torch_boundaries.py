@@ -39,7 +39,9 @@ def test_port_files_found():
                 "configs/qwen15_32b.py", "configs/command_r_plus_104b.py",
                 "configs/chameleon_34b.py", "configs/gemma2_9b.py",
                 "configs/gemma3_27b.py", "models/moe.py",
-                "configs/mixtral_8x22b.py", "configs/deepseek_v2_236b.py"):
+                "configs/mixtral_8x22b.py", "configs/deepseek_v2_236b.py",
+                "models/ssm.py", "models/rwkv.py",
+                "configs/jamba_v01_52b.py", "configs/rwkv6_3b.py"):
         assert port / rel in PORT_FILES, rel
 
 
@@ -64,15 +66,16 @@ def test_launchers_refuse_unported_arch_by_name(launcher, capsys):
     from repro_torch.configs.base import list_archs
     from repro_torch.launch import train as train_launcher
 
-    assert "jamba-v0.1-52b" not in list_archs()
+    assert "whisper-base" not in list_archs()
     assert {"gemma2-9b", "qwen1.5-32b", "mixtral-8x22b",
-            "deepseek-v2-236b"} <= set(list_archs())
+            "deepseek-v2-236b", "jamba-v0.1-52b",
+            "rwkv6-3b"} <= set(list_archs())
     run = {"train": train_launcher.train,
            "serve": serve_launcher.serve}[launcher]
     with pytest.raises(SystemExit) as e:
-        run(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu"])
+        run(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
     assert e.value.code == 2
-    assert "jamba-v0.1-52b" in capsys.readouterr().err
+    assert "whisper-base" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -142,8 +145,9 @@ def test_launcher_needs_kv_quant():
 @pytest.mark.parametrize("change", [{"norm": "ln"}, {"kind": "mamba"},
                                     {"cross_attn": True}, {"kind": "rwkv"}])
 def test_unported_layer_kinds_point_to_the_roadmap(change):
-    """A layer the port does not run is refused by name, pointing to
-    ROADMAP.md as the other refusals do."""
+    """A layer the port does not run (layer norm, cross-attention) is
+    refused by name, pointing to ROADMAP.md as the other refusals do;
+    Mamba and RWKV layers are admitted."""
     import dataclasses
 
     from repro_torch.models.blocks import check_ported_layer
@@ -156,6 +160,9 @@ def test_unported_layer_kinds_point_to_the_roadmap(change):
         cfg = dataclasses.replace(cfg, **change)
     else:
         spec = dataclasses.replace(spec, **change)
+    if change.get("kind") in ("mamba", "rwkv"):
+        check_ported_layer(cfg, spec)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_ported_layer(cfg, spec)
 
@@ -166,14 +173,20 @@ def test_unported_layer_kinds_point_to_the_roadmap(change):
     ({"mla": MLAParams(q_lora=32, kv_lora=16, rope_head_dim=8,
                        nope_head_dim=16, v_head_dim=16)},
      "paged KV serving supports GQA attention stacks only"),
+    ({"arch": "jamba-v0.1-52b"},
+     "paged KV serving supports GQA attention stacks only"),
+    ({"arch": "rwkv6-3b"},
+     "paged KV serving supports GQA attention stacks only"),
 ])
 def test_paged_engine_refuses_moe_and_mla(change, message):
-    """MoE and MLA layers run in training and on the dense serve path;
-    the paged engine refuses them as the reference's does (MoE capacity
-    dispatch couples the tokens of a batch)."""
+    """MoE, MLA, Mamba and RWKV layers run in training and on the dense
+    serve path; the paged engine refuses them as the reference's does
+    (MoE capacity dispatch couples the tokens of a batch; a recurrent
+    layer has no KV pages)."""
     import dataclasses
 
-    model = LM(dataclasses.replace(get_smoke_config("lm-100m"), **change))
+    model = LM(get_smoke_config(change["arch"]) if "arch" in change else
+               dataclasses.replace(get_smoke_config("lm-100m"), **change))
     cfg = ServeConfig(kv_quant="orq-9", page_size=4, max_batch=1,
                       max_pages_per_seq=2, prefill_chunk=4)
     with pytest.raises(ValueError, match=message):
