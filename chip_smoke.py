@@ -238,6 +238,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             kernel call against its plain version; aux 0 for rwkv6), and
             one full-width training forward + backward of one layer each
             (batch 8 x 128, bf16): ms and own peak.
+23. whisper  whisper-base (6 encoder + 6 decoder layers, layer norm,
+            cross-attention over 1500 frames) at full width and depth:
+            (a) the serving launcher's dense path, weights drawn on the
+            card, 8 prompts of 64 tokens in one chunk after the encoder's
+            ``warm_cache`` (timed on its own), then 8 decode steps: warm
+            seconds, prefill seconds, decode p50 / p99, own peak, the
+            cache bytes (exactly the reference's ``init_cache(8, 128)``,
+            160,041,984) and every counter 0; (b) card against CPU at the
+            smoke size: ``layer_norm``, ``dense_mlp`` and the chunked
+            attention (cross, ragged key chunks; the encoder's) in f32
+            within WHISPER_ATOL_F32, the encoder's output, logits,
+            warmed cross K/V and served logits in bf16 within ATOL_BF16,
+            gradients within WHISPER_GRAD_REL; (c) ``make_train_step``
+            on the NCCL world of one with ``{tokens, enc_embeds}``
+            batches at the smoke size, orq-9 and BinGrad-b, bucket 512,
+            2 steps then 1 with error feedback: phase 21's launches, 4
+            collectives a step, ``policy_stats``' wire bytes (266,888 /
+            65,808), every EF-step kernel call against its plain
+            version; (d) the same at published widths, bucket 2048,
+            8 x 128 tokens and (8, 1500, 512) frames: wire bytes
+            101,427,160 / 25,261,104 at L = 1, step p50 and own peak.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -3725,6 +3746,16 @@ def _record_ops(torch, calls):
     return lambda: [setattr(ops, n, f) for n, f in origs.items()]
 
 
+def _check_recorded(calls, before, what):
+    """The calls ``_record_ops`` recorded since the counters read
+    ``before`` are exactly the kernel launches since then."""
+    step = {k: n - before[k] for k, n in _read_counters().items()}
+    seen = {k: sum(c[0] == op for c in calls) for op, k in MOE_HELD.items()}
+    if any(seen[k] != step[k] for k in seen) or any(
+            n for k, n in step.items() if k not in seen):
+        raise AssertionError(f"{what}: recorded {seen}, launched {step}")
+
+
 def _hold_exchange_calls(torch, arch, quant, calls, smi, phase="moe_mla"):
     """The recorded kernel calls of one training step, each kernel against
     its plain version on the same inputs, by the rules of phase 3:
@@ -3838,13 +3869,7 @@ def _moe_train(torch, arch, smi, phase="moe_mla"):
                     r = launcher.train(args)
                 finally:
                     restore()
-                step = {k: n - before[k] for k, n in _read_counters().items()}
-                seen = {k: sum(c[0] == op for c in calls)
-                        for op, k in MOE_HELD.items()}
-                if any(seen[k] != step[k] for k in seen) or any(
-                        n for k, n in step.items() if k not in seen):
-                    raise AssertionError(f"train {arch} {quant}: recorded "
-                                         f"{seen}, launched {step}")
+                _check_recorded(calls, before, f"train {arch} {quant}")
             rows.append(dict(args=" ".join(args),
                              losses=[h["loss"] for h in r["history"]],
                              aux=[h["aux"] for h in r["history"]],
@@ -4240,6 +4265,312 @@ def run_recurrent(torch, dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 23: whisper-base (encoder, cross-attention, layer norm)
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-base"
+#: full width and depth: parameters, ``init_cache(8, 128)`` bytes, the
+#: cross K/V bytes a sequence and decoder layer, the bytes a token of a
+#: decoder layer's self-attention
+WHISPER_FULL = dict(n_params=97_981_440, cache=160_041_984,
+                    cross=3_072_000, token=2048)
+#: wire bytes a worker and step at L = 1: the smoke model at bucket 512,
+#: the full model at bucket 2048
+WHISPER_WIRE = {"smoke": {"orq-9": 266_888, "bingrad-b": 65_808},
+                "full": {"orq-9": 101_427_160, "bingrad-b": 25_261_104}}
+WHISPER_TRAIN = {"smoke": dict(bucket=512, batch=8, seq=64),
+                 "full": dict(bucket=2048, batch=8, seq=128)}
+WHISPER_ATOL_F32 = 1e-5
+WHISPER_GRAD_REL = 2e-2
+
+
+def _whisper_serve(torch, dev, smi):
+    """(a) whisper-base at full width and depth on the dense path through
+    the serving launcher's ``_serve_dense``: the encoder's ``warm_cache``
+    on the launcher's frame embeddings (seed + 2) before the clock, then
+    MOE_BATCH prompts of MOE_PROMPT tokens in one chunk and MOE_GEN - 1
+    decode steps. The cache must read the reference's ``init_cache(8,
+    128)`` bytes; counters zeroed just before must read 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config(WHISPER)
+    model = LM(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(model.abstract_params()))
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    params = map_tree(lambda t: t.to(torch.bfloat16), params)
+    args = launcher.parse_args([
+        "--arch", WHISPER, "--batch", str(MOE_BATCH), "--prompt-len",
+        str(MOE_PROMPT), "--gen", str(MOE_GEN), "--max-len",
+        str(MOE_MAX_LEN), "--prefill-chunk", str(MOE_PROMPT)])
+    prompt = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).numpy().astype("int32")
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r = launcher._serve_dense(args, model, params, prompt, dev)
+    launches = _read_counters()
+    row = dict(arch=WHISPER, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder.num_layers,
+               frames=cfg.encoder.num_frames, n_params=n_params,
+               warm_cache_s=r["warm_cache_s"],
+               prefill_chunk=r["prefill_chunk"],
+               prefill_tokens=r["prefill_tokens"], prefill_s=r["prefill_s"],
+               prefill_tok_s=r["prefill_tok_s"],
+               decode_tokens=r["decode_tokens"],
+               decode_step_p50_ms=r["step_p50_ms"],
+               decode_step_p99_ms=r["step_p99_ms"],
+               decode_tok_s=r["decode_tok_s"],
+               serve_peak_above_start=torch.cuda.max_memory_allocated()
+               - base,
+               weights_read_less_embed_ms=2 * (n_params - cfg.vocab_size
+                                               * cfg.d_model)
+               / HBM_BYTES_PER_S * 1e3,
+               token_bytes=r["token_bytes"], cross_bytes=r["cross_bytes"],
+               cache_bytes=r["cache_bytes"],
+               cache_bytes_expected=WHISPER_FULL["cache"],
+               launches=launches, tokens_sha256=r["sha256"], device=smi)
+    emit("whisper", what="(a) serve, dense path, full width and depth",
+         **row)
+    toks = r["tokens"]
+    if any(launches.values()):
+        raise AssertionError(f"whisper dense serve launched kernels "
+                             f"{launches}")
+    if toks.shape != (MOE_BATCH, MOE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"whisper: bad tokens {toks.shape}")
+    if (n_params != WHISPER_FULL["n_params"]
+            or r["prefill_chunk"] != MOE_PROMPT
+            or r["cache_bytes"] != WHISPER_FULL["cache"]
+            or r["cross_bytes"] != WHISPER_FULL["cross"]
+            or r["token_bytes"] != WHISPER_FULL["token"]
+            or not r["warm_cache_s"] > 0):
+        raise AssertionError(f"whisper: serve accounting {row}")
+    del params, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def _whisper_card_vs_cpu(torch, dev, smi):
+    """(b) At the smoke size, card against CPU on the same inputs: the
+    layer functions in f32 (WHISPER_ATOL_F32 of the CPU's largest value),
+    then the bf16 model: the encoder's output and the logits within
+    ATOL_BF16, every gradient of the loss (the encoder's too) within
+    WHISPER_GRAD_REL in relative norm, the warmed cross K/V and the
+    served logits (one prefill chunk, 4 decode steps) within ATOL_BF16."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import LM, attention, layers
+    from repro_torch.models.model import map_tree
+    from repro_torch.utils.pytree import tree_leaves
+
+    g = torch.Generator().manual_seed(23)
+    to = lambda tree: map_tree(lambda t: t.to(dev), tree)  # noqa: E731
+
+    def err(got, want):
+        got, want = got.detach().float().cpu(), want.detach().float()
+        return float((got - want).abs().max() / want.abs().max())
+
+    errs = {}
+    x = 3.0 + torch.randn((2, 7, 64), generator=g)
+    sc, bi = 1 + 0.1 * torch.randn(64, generator=g), 0.1 * torch.randn(
+        64, generator=g)
+    errs["layer_norm_f32"] = err(layers.layer_norm(*to((x, sc, bi))),
+                                 layers.layer_norm(x, sc, bi))
+    mp = {"wi": torch.randn((64, 128), generator=g) / 8,
+          "bi": 0.1 * torch.randn(128, generator=g),
+          "wo": torch.randn((128, 64), generator=g) / 11,
+          "bo": 0.1 * torch.randn(64, generator=g)}
+    x = torch.randn((2, 16, 64), generator=g)
+    errs["dense_mlp_f32"] = err(layers.dense_mlp(to(mp), x.to(dev)),
+                                layers.dense_mlp(mp, x))
+    for name, (S, T, causal, rope) in {"cross_ragged": (20, 75, False, False),
+                                       "encoder_self": (75, 75, False, True)
+                                       }.items():
+        spec = attention.AttnSpec(num_heads=4, num_kv_heads=2, head_dim=16,
+                                  causal=causal, use_rope=rope, q_chunk=32,
+                                  kv_chunk=32)
+        q = torch.randn((2, S, 4, 16), generator=g)
+        k, v = (torch.randn((2, T, 2, 16), generator=g) for _ in range(2))
+        errs[f"attention_{name}_f32"] = err(
+            attention.chunked_attention(*to((q, k, v)), spec),
+            attention.chunked_attention(q, k, v, spec))
+    f32_ok = all(e <= WHISPER_ATOL_F32 for e in errs.values())
+
+    cfg = get_smoke_config(WHISPER)
+    model = LM(cfg)
+    params = map_tree(lambda t: t if t.any() else 0.1 * torch.randn(
+        t.shape, generator=g), model.init(g, device="cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    enc = 0.02 * torch.randn((2, cfg.encoder.num_frames, cfg.d_model),
+                             generator=g)
+    runs = {}
+    for where in ("cpu", dev):
+        p = map_tree(lambda t: t.to(where).requires_grad_(True), params)
+        e, t = enc.to(where), toks.to(where)
+        with torch.no_grad():
+            enc_out = model.encode(p, e)
+            lg, _ = model.logits(p, t, enc_embeds=e)
+        loss, _ = model.loss(p, {"tokens": t, "enc_embeds": e})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        pb = map_tree(lambda t: t.detach().to(torch.bfloat16), p)
+        cache = model.warm_cache(pb, model.init_cache(2, 32, device=where),
+                                 e.to(torch.bfloat16))
+        warmed = [cache[0]["pos0"][k].clone() for k in ("xk", "xv")]
+        slg, cache = model.prefill_chunk(pb, cache, t[:, :8], 0)
+        served = [slg[:, -1]]
+        for i in range(8, 12):
+            slg, cache = model.decode_step(pb, cache, t[:, i:i + 1], i)
+            served.append(slg[:, 0])
+        runs[str(where)] = (enc_out, lg, float(loss.detach()), grads, warmed,
+                            served)
+    want, got = runs["cpu"], runs[str(dev)]
+    errs.update(encode_bf16=err(got[0], want[0]),
+                logits_bf16=err(got[1], want[1]),
+                loss_rel=abs(got[2] - want[2]) / abs(want[2]),
+                warm_xk_bf16=err(got[4][0], want[4][0]),
+                warm_xv_bf16=err(got[4][1], want[4][1]),
+                served_logits_bf16=max(err(a, b) for a, b in zip(got[5],
+                                                                 want[5])))
+    rels = [float((a.cpu() - b).norm() / max(float(b.norm()), 1e-30))
+            for a, b in zip(got[3], want[3], strict=True)]
+    errs["grad_rel_max"] = max(rels)
+    bf16 = ("encode_bf16", "logits_bf16", "warm_xk_bf16", "warm_xv_bf16",
+            "served_logits_bf16")
+    ok = (f32_ok and all(errs[k] <= ATOL_BF16 for k in bf16)
+          and errs["loss_rel"] <= 1e-3
+          and errs["grad_rel_max"] <= WHISPER_GRAD_REL)
+    emit("whisper", what="(b) card vs CPU at SMOKE", ok=bool(ok),
+         atol_f32=WHISPER_ATOL_F32, atol_bf16=ATOL_BF16,
+         grad_rel=WHISPER_GRAD_REL, **errs, device=smi)
+    if not ok:
+        raise AssertionError(f"whisper: card and CPU differ: {errs}")
+    return errs
+
+
+def _whisper_train(torch, dev, smi, size):
+    """(c) / (d) ``make_train_step`` on the NCCL world of one, the batch
+    ``{tokens, enc_embeds}``: the tokens the training launcher's
+    ``SyntheticLM`` stream gives, the frames N(0, 0.02^2) drawn on the
+    card. orq-9 and BinGrad-b, 2 steps then 1 with error feedback (a
+    fresh state each): finite losses, 4 collective launches a step,
+    ``policy_stats``' wire bytes (WHISPER_WIRE), the fused path's
+    launches (MOE_TRAIN_EXPECT); every kernel call of the EF step held
+    against its plain version. Step seconds (CUDA-synchronised) and each
+    run's own peak above what was allocated before its state."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.exchange import policy_stats
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = (get_smoke_config if size == "smoke" else get_config)(WHISPER)
+    shape = WHISPER_TRAIN[size]
+    model = LM(cfg)
+    sizes = _path_sizes(model)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape["seq"],
+                       batch_size=shape["batch"], seed=0)
+    enc = 0.02 * torch.randn(
+        (shape["batch"], cfg.encoder.num_frames, cfg.d_model),
+        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    total = {}
+    for quant, expect in MOE_TRAIN_EXPECT.items():
+        policy = QuantPolicy.parse(quant, bucket_size=shape["bucket"])
+        wire = policy_stats(policy, sizes, 1)[1]
+        _zero_counters()
+        rows, calls = [], []
+        for steps, ef in ((2, False), (1, True)):
+            tcfg = TrainConfig(policy=policy, error_feedback=ef)
+            fn = make_train_step(model, tcfg, constant_lr(0.05))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state = init_state(model, tcfg, seed=0, device=dev, step=fn)
+            key = prng.key(0, device=dev)
+            before = _read_counters()
+            restore = _record_ops(torch, calls) if ef else (lambda: None)
+            losses, step_s = [], []
+            try:
+                for i in range(steps):
+                    batch = {"tokens": data.batch(i, device=dev)["tokens"],
+                             "enc_embeds": enc}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = fn(state, batch, key)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+            finally:
+                restore()
+            peak = torch.cuda.max_memory_allocated() - base
+            if ef:
+                _check_recorded(calls, before, f"train whisper {quant}")
+            n_coll, wbytes = fn.launches_and_bytes(1)
+            rows.append(dict(steps=steps, error_feedback=ef, losses=losses,
+                             step_s=step_s,
+                             step_p50_ms=statistics.median(step_s) * 1e3,
+                             peak_mem_above_start=peak,
+                             collective_launches_per_step=n_coll,
+                             wire_bytes_per_worker=wbytes))
+            del state
+        launches = _read_counters()
+        want = _expect(expect)
+        emit("whisper", what=f"({'c' if size == 'smoke' else 'd'}) train "
+             f"{size}, make_train_step with enc_embeds", arch=WHISPER,
+             quant=quant, bucket=shape["bucket"], batch=shape["batch"],
+             seq=shape["seq"], frames=cfg.encoder.num_frames,
+             n_params=sum(n for _, n in sizes), runs=rows, launches=launches,
+             expected_launches=want, wire_expected=wire,
+             wire_asserted=WHISPER_WIRE[size][quant], device=smi)
+        for row in rows:
+            if (not all(x == x and abs(x) < float("inf")
+                        for x in row["losses"])
+                    or row["collective_launches_per_step"] != 4
+                    or row["wire_bytes_per_worker"] != wire
+                    or wire != WHISPER_WIRE[size][quant]):
+                raise AssertionError(f"train whisper {size} {quant}: {row}")
+        if launches != want:
+            raise AssertionError(f"train whisper {size} {quant}: launches "
+                                 f"{launches} != {want}")
+        _hold_exchange_calls(torch, f"{WHISPER} {size}", quant, calls, smi,
+                             "whisper")
+        del calls
+        torch.cuda.empty_cache()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_whisper(torch, dev):
+    """Phase 23: whisper-base served at full width and depth on the dense
+    path, the card against the CPU at its smoke size, and its training
+    through ``make_train_step`` with frame embeddings in the batch on the
+    NCCL world of one, at the smoke size and at published widths."""
+    smi = nvidia_smi()
+    _whisper_serve(torch, dev, smi)
+    _whisper_card_vs_cpu(torch, dev, smi)
+    dist = start_world(torch)
+    total = {k: 0 for k in _counters()}
+    try:
+        for size in ("smoke", "full"):
+            for k, v in _whisper_train(torch, dev, smi, size).items():
+                total[k] += v
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -4359,6 +4690,8 @@ def main() -> int:
     lap("moe_mla")
     rec_launches = run_recurrent(torch, dev)
     lap("recurrent")
+    whisper_launches = run_whisper(torch, dev)
+    lap("whisper")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -4375,7 +4708,8 @@ def main() -> int:
              "paper_cifar": cifar_launches,
              "serve_archs": arch_launches,
              "moe_mla": moe_launches,
-             "recurrent": rec_launches}
+             "recurrent": rec_launches,
+             "whisper": whisper_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -112,8 +112,8 @@ class ModelConfig:
         return self.d_ff
 
 
-# Only the configurations the port serves so far; the reference registry
-# (``src/repro/configs/base.py``) lists every architecture.
+# Every configuration of the reference's registry
+# (``src/repro/configs/base.py``).
 _REGISTRY = {
     "lm-100m": "repro_torch.configs.lm_100m",
     "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
@@ -125,6 +125,7 @@ _REGISTRY = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 

@@ -15,12 +15,18 @@ decoding on one card. Two paths:
                        context).
 
 Weights are random, drawn from ``torch.Generator(seed)``, and served in
-bf16; prompts are drawn from ``torch.Generator(seed + 1)``. Timing starts
-AFTER a warm-up (a step on a throwaway cache, or a warm-up request), and
-prefill / decode throughput are reported separately, with the decode
-steps' p50 / p99 latency, the cache bytes (K/V bytes per token of an
-attention layer; a Mamba or RWKV layer's recurrent state per sequence)
-and a sha256 digest of the generated tokens.
+bf16; prompts are drawn from ``torch.Generator(seed + 1)``. An
+encoder-decoder config (whisper) serves on the dense path only: its frame
+embeddings (batch, frames, d_model), N(0, 0.02^2) from
+``torch.Generator(seed + 2)`` in bf16 (the reference's stub of the audio
+frontend), go through the encoder into the cache's cross K/V
+(``LM.warm_cache``) before the clock starts, timed on their own. Timing
+starts AFTER a warm-up (a step on a throwaway cache, or a warm-up
+request), and prefill / decode throughput are reported separately, with
+the decode steps' p50 / p99 latency, the cache bytes (K/V bytes per
+token of an attention layer; a Mamba or RWKV layer's recurrent state per
+sequence; the cross K/V per sequence of a decoder layer) and a sha256
+digest of the generated tokens.
 
     python -m repro_torch.launch.serve --batch 8 --prompt-len 128 \\
         --gen 32 --max-len 512 --prefill-chunk 64
@@ -86,6 +92,24 @@ def dense_state_bytes(cfg) -> int:
     return 0
 
 
+def dense_cross_bytes(cfg) -> int:
+    """bf16 cross-attention K/V bytes per sequence and decoder layer of
+    an encoder-decoder config (every encoder frame, every KV head); 0
+    without an encoder."""
+    if cfg.encoder is None:
+        return 0
+    return cfg.encoder.num_frames * 2 * cfg.num_kv_heads * \
+        cfg.resolved_head_dim * 2
+
+
+def frame_embeds(cfg, batch: int, seed: int, device) -> torch.Tensor:
+    """The serving launcher's frame embeddings (batch, frames, d_model):
+    N(0, 0.02^2) from ``torch.Generator(seed + 2)``, in bf16."""
+    g = torch.Generator().manual_seed(seed + 2)
+    return (torch.randn((batch, cfg.encoder.num_frames, cfg.d_model),
+                        generator=g) * 0.02).to(torch.bfloat16).to(device)
+
+
 def _serve_dense(args, model, params, prompt, device) -> dict:
     cfg = model.cfg
     chunk = args.prefill_chunk
@@ -111,8 +135,12 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
         forward_calls += 1
         return fn(params, cache, tokens, pos)
 
+    enc = (frame_embeds(cfg, args.batch, args.seed, device) if cfg.encoder
+           else None)
     # warm up on a throwaway cache
     warm = model.init_cache(args.batch, args.max_len, device=device)
+    if enc is not None:
+        model.warm_cache(params, warm, enc)
     forward(model.decode_step, warm, prompt[:, :1], 0)
     if chunk:
         warm = model.init_cache(args.batch, args.max_len, device=device)
@@ -123,6 +151,13 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
         torch.cuda.synchronize(device)
 
     cache = model.init_cache(args.batch, args.max_len, device=device)
+    warm_s = None
+    if enc is not None:                # the encoder, before the clock
+        t0 = time.perf_counter()
+        cache = model.warm_cache(params, cache, enc)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     if chunk:
         for off in range(0, args.prompt_len, chunk):
@@ -163,6 +198,8 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
                            for t in c.values()),
         "token_bytes": kv_bytes,
         "state_bytes": dense_state_bytes(cfg),
+        "cross_bytes": dense_cross_bytes(cfg),
+        "warm_cache_s": warm_s,
         "token_bytes_ratio": 1.0,
         "forward_calls": forward_calls,
         "layers": cfg.num_layers,
@@ -210,6 +247,8 @@ def _serve_paged(args, model, params, prompt, device) -> dict:
         "cache_bytes": eng.cache_bytes(),
         "token_bytes": eng.kvq.token_bytes(),
         "state_bytes": 0,
+        "cross_bytes": 0,
+        "warm_cache_s": None,
         "token_bytes_ratio": token_bytes_ratio(eng.kvq),
         "forward_calls": eng.forward_calls,
         "layers": model.cfg.num_layers,
@@ -271,6 +310,8 @@ def serve(argv=None) -> dict:
 
 def main(argv=None) -> int:
     r = serve(argv)
+    if r["warm_cache_s"] is not None:
+        print(f"encoder warm_cache: {r['warm_cache_s']:.3f}s")
     print("generated:", r["tokens"][:, :16])
     print(f"prefill: {r['prefill_tokens']} tokens in {r['prefill_s']:.2f}s "
           f"= {r['prefill_tok_s']:.1f} tok/s")
@@ -281,6 +322,9 @@ def main(argv=None) -> int:
               f"p99 {r['step_p99_ms']:.1f}ms")
     state = (f", {r['state_bytes']} per sequence and recurrent layer"
              if r["state_bytes"] else "")
+    if r["cross_bytes"]:
+        state += (f", {r['cross_bytes']} cross K/V per sequence and "
+                  f"decoder layer")
     print(f"cache bytes: {r['cache_bytes']} "
           f"({r['token_bytes']} per token and attention layer{state}, "
           f"{r['path']} path)")

@@ -57,7 +57,10 @@ stacked over the ranks, async params and optimizer state stacked over
 the ranks), and ``--resume`` slices them back.
 
 Model parallelism is not ported yet (ROADMAP.md); its flag exits with a
-message.
+message. An encoder-decoder arch (whisper-base) is refused by name: its
+batch carries frame embeddings beside the tokens, which this launcher's
+token stream lacks (as the reference launcher's); it trains through
+``make_train_step`` with ``{"tokens", "enc_embeds"}`` batches.
 """
 from __future__ import annotations
 
@@ -200,6 +203,12 @@ def _check_args(ap, args):
     with the reference launcher's messages -> (schedule or None, tcfg)."""
     if args.model_parallel != 1:
         ap.error(f"--model-parallel {_NOT_PORTED}")
+    if get_config(args.arch).encoder is not None:
+        ap.error(f"--arch {args.arch}: an encoder-decoder model needs its "
+                 f"frame embeddings in every batch, and this launcher's "
+                 f"stream has tokens only; {args.arch} trains through "
+                 f"make_train_step with enc_embeds in the batch "
+                 f"({{'tokens', 'enc_embeds'}})")
     if args.checkpoint_at is not None and not args.state_checkpoint:
         ap.error("--checkpoint-at needs --state-checkpoint")
     schedule = None

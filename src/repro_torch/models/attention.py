@@ -1,11 +1,12 @@
 """Attention (the reference's ``models/attention.py``): the spec, its
-scale and partial rope (MLA rotates only the last ``rope_dims``), the
-chunked online-softmax attention of the training forward (full
-or sliding-window, the latter as the reference's banded scan), and
-the cache attention with a full per-query mask, used by the serving
-engine's bf16 escape hatch and by the dense ring-buffer decode
-(``decode_attention``). Plain PyTorch: the reference computes all of it
-outside any Pallas kernel."""
+scale and rope policy (none for cross-attention; MLA rotates only the
+last ``rope_dims``), the chunked online-softmax attention of the
+training forward (causal or not, full or sliding-window, the latter as
+the reference's banded scan; queries and keys of different lengths for
+cross-attention), and the cache attention with a full per-query mask,
+used by the serving engine's bf16 escape hatch and by the dense
+ring-buffer decode (``decode_attention``). Plain PyTorch: the reference
+computes all of it outside any Pallas kernel."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -19,8 +20,7 @@ NEG_INF = -2.0e38
 
 class AttnSpec(NamedTuple):
     """The fields of the reference's ``AttnSpec`` that the ported paths
-    read (its ``use_rope`` belongs to the encoder and cross-attention,
-    which are not ported)."""
+    read (all but its ``probs_bf16``)."""
 
     num_heads: int
     num_kv_heads: int
@@ -32,6 +32,7 @@ class AttnSpec(NamedTuple):
     q_chunk: int = 512
     kv_chunk: int = 512
     scale: Optional[float] = None    # default hd^-0.5
+    use_rope: bool = True            # False: cross-attention
     rope_dims: int = 0               # >0: rotate only the LAST rope_dims
                                      # (MLA: the nope dims stay unrotated)
 
@@ -41,8 +42,11 @@ def _scale(spec: AttnSpec) -> float:
 
 
 def spec_rope(x, positions, spec: AttnSpec):
-    """The spec's rope on (..., S, H, hd): the whole head, or with
-    ``rope_dims`` only its last ``rope_dims`` dimensions."""
+    """The spec's rope on (..., S, H, hd): none without ``use_rope``, the
+    whole head, or with ``rope_dims`` only its last ``rope_dims``
+    dimensions."""
+    if not spec.use_rope:
+        return x
     if spec.rope_dims:
         keep, rot = x[..., :-spec.rope_dims], x[..., -spec.rope_dims:]
         return torch.cat([keep, apply_rope(rot, positions,
@@ -74,12 +78,17 @@ def _chunk_out(p, v, B, H, qc):
 
 
 def chunked_attention(q, k, v, spec: AttnSpec):
-    """Training attention: q (B,S,H,hd), k/v (B,S,KV,hd), rope not yet
+    """Training attention: q (B,S,H,hd), k/v (B,T,KV,hd), rope not yet
     applied -> (B,S,H,hd) in q's type. The reference's flash-style loop:
     query chunks outside, key/value chunks inside with a running (max,
-    sum, acc) in float32, so no (S, S) score matrix exists. Rope rotates
-    each position independently, so it is applied to the whole q and k
-    once instead of per chunk.
+    sum, acc) in float32, so no (S, T) score matrix exists. Queries sit
+    at positions 0..S-1 and keys at 0..T-1 (T != S for cross-attention,
+    which is not causal). Rope rotates each position independently, so it
+    is applied to the whole q and k once instead of per chunk.
+
+    The reference pads T up to a multiple of kv_chunk and masks the
+    padded keys; here the last chunk is simply shorter (a fully masked
+    tail adds nothing, so only the order of the sums differs).
 
     A causal sliding-window spec takes the reference's banded scan: each
     query chunk visits at most ceil(window / kv_chunk) + 1 KV chunks,
@@ -89,11 +98,13 @@ def chunked_attention(q, k, v, spec: AttnSpec):
     the diagonal are fully masked, and a fully masked chunk leaves (max,
     sum, acc) exactly as they were, so they are skipped here."""
     B, S, H, hd = q.shape
-    pos = torch.arange(S, device=q.device)
-    q = spec_rope(q, pos, spec)
-    k = spec_rope(k, pos, spec)
-    qc, kc = min(spec.q_chunk, S), min(spec.kv_chunk, S)
-    banded = spec.window is not None and spec.causal
+    T = k.shape[1]
+    qpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(T, device=q.device)
+    q = spec_rope(q, qpos, spec)
+    k = spec_rope(k, kpos, spec)
+    qc, kc = min(spec.q_chunk, S), min(spec.kv_chunk, T)
+    banded = spec.window is not None and spec.causal and S == T
     if banded and qc != kc:
         raise ValueError("banded sliding-window attention needs equal "
                          f"q/kv chunk sizes (got {qc}, {kc})")
@@ -110,24 +121,24 @@ def chunked_attention(q, k, v, spec: AttnSpec):
             k_starts = [q0 - r * kc for r in range(w_chunks + 1)
                         if q0 - r * kc >= 0]
         else:
-            k_starts = range(0, S, kc)
+            k_starts = range(0, T, kc)
         for k0 in k_starts:
             if spec.causal and k0 > q0 + n - 1:
                 break                        # every score masked: no-op
             kb, vb = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
             s = _chunk_scores(qb, kb, spec)              # (B,H,n,kc)
-            if spec.causal:
-                mask = pos[q0:q0 + n, None] >= pos[None, k0:k0 + kc]
-            else:
-                mask = torch.ones((n, kb.shape[1]), dtype=torch.bool,
-                                  device=q.device)
+            qp, kp = qpos[q0:q0 + n, None], kpos[None, k0:k0 + kc]
+            mask = qp >= kp if spec.causal else None
             if spec.window is not None:
-                mask = mask & (pos[q0:q0 + n, None] - pos[None, k0:k0 + kc]
-                               < spec.window)
-            s = torch.where(mask, s, NEG_INF)
+                near = qp - kp < spec.window
+                mask = near if mask is None else mask & near
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
-            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
             corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
             l = l * corr + p.sum(dim=-1)
             o = (o * corr[..., None]

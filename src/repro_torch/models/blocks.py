@@ -1,9 +1,10 @@
 """Per-layer parameters and the layers: attention (GQA or MLA, each with
-a dense or a Mixture-of-Experts FFN), Mamba and RWKV-6. The pieces the
-serving engine applies, the training forward ``apply_layer_train`` and
-the dense ring-buffer decode (``init_layer_cache``,
-``apply_layer_prefill_chunk``, ``apply_layer_decode``), as in the
-reference's ``models/blocks.py``.
+a dense or a Mixture-of-Experts FFN; whisper's decoder layers add a
+cross-attention over the encoder's output), Mamba and RWKV-6, under
+RMSNorm or layer norm. The pieces the serving engine applies, the
+training forward ``apply_layer_train`` and the dense ring-buffer decode
+(``init_layer_cache``, ``apply_layer_prefill_chunk``,
+``apply_layer_decode``), as in the reference's ``models/blocks.py``.
 
 The ring-buffer cache of a GQA layer is ``{"k", "v": (B, C, KV, hd)
 bf16, "pos": (C,) int32}``: slot ``pos % C`` holds the token at absolute
@@ -11,7 +12,10 @@ position ``pos``, and ``pos`` is -1 where no token was written yet. A
 sliding-window layer (``attn_local``) keeps C = min(max_len, window)
 slots. An MLA layer caches the compressed latent instead, ``{"ckv": (B,
 C, kv_lora), "kr": (B, C, rope_head_dim), "pos"}`` (``kr`` roped when it
-is written), and decodes in the absorbed form. The decode functions write
+is written), and decodes in the absorbed form. A cross-attention layer
+adds ``{"xk", "xv": (B, frames, KV, hd)}``, the encoder output's K/V,
+written once by ``LM.warm_cache`` and only read by the decode functions
+(the queries are not roped). The decode functions write
 the new rows into the cache in place (the reference donates the cache
 through its jit) and return it.
 
@@ -33,8 +37,8 @@ from repro_torch.models.attention import (NEG_INF, AttnSpec,
                                          chunked_attention,
                                          decode_attention,
                                          masked_decode_attention)
-from repro_torch.models.layers import (apply_rope, dense_init, gated_mlp,
-                                       rms_norm)
+from repro_torch.models.layers import (apply_rope, dense_init, dense_mlp,
+                                       gated_mlp, layer_norm, rms_norm)
 from repro_torch.models.moe import MoESpec, moe_ffn
 
 
@@ -86,16 +90,22 @@ def moe_spec(cfg: ModelConfig) -> MoESpec:
 
 
 def check_ported_layer(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """The port runs attention layers (GQA or MLA, dense or MoE FFN),
-    Mamba and RWKV-6 layers, with RMSNorm; cross-attention and layer norm
-    are refused."""
+    """The port runs attention layers (GQA or MLA, dense or MoE FFN, with
+    or without cross-attention), Mamba and RWKV-6 layers, under RMSNorm
+    or layer norm; any other layer kind or norm is refused."""
     if (spec.kind not in ("attn", "attn_local", "mamba", "rwkv")
-            or cfg.norm != "rms" or spec.cross_attn):
+            or cfg.norm not in ("rms", "ln")):
         raise NotImplementedError(
-            f"repro_torch ports attention, Mamba and RWKV layers with "
-            f"RMSNorm only (kind={spec.kind!r}, norm={cfg.norm!r}, "
-            f"cross_attn={spec.cross_attn}); cross-attention and layer norm "
-            f"are not ported yet (see ROADMAP.md)")
+            f"repro_torch ports attention, Mamba and RWKV layers under "
+            f"RMSNorm or layer norm only (kind={spec.kind!r}, "
+            f"norm={cfg.norm!r}); other layers are not ported (see "
+            f"ROADMAP.md)")
+
+
+def _norm_p(cfg: ModelConfig, D: int) -> dict:
+    if cfg.norm == "ln":
+        return {"scale": torch.ones(D), "bias": torch.zeros(D)}
+    return {"scale": torch.zeros(D)}
 
 
 def _init_attn(cfg: ModelConfig, gen) -> dict:
@@ -146,6 +156,9 @@ def _init_ffn(cfg: ModelConfig, gen, spec: LayerSpec) -> dict:
             p["shared_wo"] = dense_init(gen, (Fs, D))
         return p
     F = spec.d_ff
+    if cfg.norm == "ln":               # whisper-style dense MLP with biases
+        return {"wi": dense_init(gen, (D, F)), "bi": torch.zeros(F),
+                "wo": dense_init(gen, (F, D)), "bo": torch.zeros(D)}
     return {"wi_gate": dense_init(gen, (D, F)),
             "wi_up": dense_init(gen, (D, F)),
             "wo": dense_init(gen, (F, D))}
@@ -155,7 +168,7 @@ def _init_mamba(cfg: ModelConfig, gen) -> dict:
     D, ms = cfg.d_model, mamba_spec(cfg)
     d_in, N, rank = ms.d_inner, ms.d_state, ms.rank
     return {
-        "norm": {"scale": torch.zeros(D)},
+        "norm": _norm_p(cfg, D),
         "in_proj": dense_init(gen, (D, 2 * d_in)),
         "conv_w": dense_init(gen, (ms.d_conv, d_in)) * 0.1,
         "conv_b": torch.zeros(d_in),
@@ -174,8 +187,8 @@ def _init_rwkv(cfg: ModelConfig, spec: LayerSpec, gen) -> dict:
     H, hd, Lm, Ld = rs.num_heads, rs.head_dim, rs.lora_mix, rs.lora_decay
     F = spec.d_ff
     return {
-        "norm1": {"scale": torch.zeros(D)},
-        "norm2": {"scale": torch.zeros(D)},
+        "norm1": _norm_p(cfg, D),
+        "norm2": _norm_p(cfg, D),
         "tm_mu": torch.full((6, D), 0.5),
         "tm_w1": dense_init(gen, (D, 5 * Lm)) * 0.1,
         "tm_w2": dense_init(gen, (5, Lm, D), in_axis=1) * 0.1,
@@ -206,15 +219,21 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec,
     if spec.kind == "rwkv":
         return _init_rwkv(cfg, spec, gen)
     D = cfg.d_model
-    return {
-        "norm1": {"scale": torch.zeros(D)},
-        "norm2": {"scale": torch.zeros(D)},
+    p = {
+        "norm1": _norm_p(cfg, D),
+        "norm2": _norm_p(cfg, D),
         "attn": _init_mla(cfg, gen) if cfg.mla else _init_attn(cfg, gen),
         "ffn": _init_ffn(cfg, gen, spec),
     }
+    if spec.cross_attn:
+        p["norm_x"] = _norm_p(cfg, D)
+        p["xattn"] = _init_attn(cfg, gen)
+    return p
 
 
 def _apply_norm(cfg: ModelConfig, p, x):
+    if cfg.norm == "ln":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -227,21 +246,40 @@ def _norm_of_sum(cfg: ModelConfig, p, x, y):
                     cfg.norm_eps).to(x.dtype)
 
 
-def _gqa_project(cfg: ModelConfig, p, x):
+def _gqa_q(cfg: ModelConfig, p, x):
+    """The query heads of ``_gqa_project`` alone."""
     B, S, D = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _gqa_kv(cfg: ModelConfig, p, x):
+    """The key and value heads of ``_gqa_project`` alone; x and the
+    weights are multiplied in their promoted type (the reference's
+    ``warm_cache`` projects the bf16 encoder output with the params as
+    they are)."""
+    B, S, D = x.shape
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch.promote_types(x.dtype, p["wk"].dtype)
+    x = x.to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return k, v
+
+
+def _gqa_project(cfg: ModelConfig, p, x):
+    return (_gqa_q(cfg, p, x),) + _gqa_kv(cfg, p, x)
 
 
 def _mla_project(cfg: ModelConfig, p, x):
@@ -264,12 +302,14 @@ def _mla_project(cfg: ModelConfig, p, x):
 
 
 def _ffn_train(cfg: ModelConfig, spec: LayerSpec, p, x):
-    """The gated MLP or the MoE FFN. Returns (y, aux) like the
-    reference."""
+    """The gated MLP, the MoE FFN or (under layer norm) the dense MLP with
+    biases. Returns (y, aux) like the reference."""
     if spec.moe:
         B, S, D = x.shape
         y, aux = moe_ffn(p, x.reshape(B * S, D), moe_spec(cfg))
         return y.reshape(B, S, D), aux
+    if cfg.norm == "ln":
+        return dense_mlp(p, x, act=cfg.mlp_act), 0.0
     return gated_mlp(p, x, act=cfg.mlp_act), 0.0
 
 
@@ -296,10 +336,18 @@ def _without_norm(p):
     return {k: v for k, v in p.items() if k != "norm"}
 
 
-def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
-    """x (B,S,D) -> (x', aux_loss): pre-norm attention, then the FFN; a
-    Mamba layer is its mixer alone (no FFN), an RWKV layer its time mix
-    then its channel mix."""
+def _cross_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
+    """Cross-attention: every frame attended, no window, no rope."""
+    return attn_spec(cfg, spec)._replace(causal=False, window=None,
+                                         use_rope=False)
+
+
+def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x,
+                      enc_out=None):
+    """x (B,S,D) -> (x', aux_loss): pre-norm attention, then (a whisper
+    decoder layer) pre-norm cross-attention over ``enc_out`` (B, frames,
+    D), then the FFN; a Mamba layer is its mixer alone (no FFN), an RWKV
+    layer its time mix then its channel mix."""
     check_ported_layer(cfg, spec)
     if spec.kind == "mamba":
         return x + ssm_mod.mamba_forward(
@@ -311,6 +359,12 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
         return x + tm + rwkv_mod.channel_mix_train(
             p, _norm_of_sum(cfg, p["norm2"], x, tm)), 0.0
     h = x + _attn_block_train(cfg, spec, p, _apply_norm(cfg, p["norm1"], x))
+    if spec.cross_attn:
+        B, S = h.shape[:2]
+        q = _gqa_q(cfg, p["xattn"], _apply_norm(cfg, p["norm_x"], h))
+        k, v = _gqa_kv(cfg, p["xattn"], enc_out)
+        o = chunked_attention(q, k, v, _cross_spec(cfg, spec))
+        h = h + o.reshape(B, S, -1) @ p["xattn"]["wo"]
     y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y, aux
 
@@ -321,10 +375,11 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x):
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype=torch.bfloat16,
-                     device=None) -> dict:
-    """One layer's empty cache: K/V heads in a ring buffer, MLA's
-    compressed latent (``ckv``, ``kr``), or a Mamba / RWKV layer's zero
-    state (``max_len`` unused)."""
+                     device=None, enc_frames: int = 0) -> dict:
+    """One layer's empty cache: K/V heads in a ring buffer (and a
+    cross-attention layer's ``enc_frames`` K/V rows of the encoder
+    output), MLA's compressed latent (``ckv``, ``kr``), or a Mamba / RWKV
+    layer's zero state (``max_len`` unused)."""
     check_ported_layer(cfg, spec)
     if spec.kind == "mamba":
         return ssm_mod.init_mamba_state(batch, mamba_spec(cfg), dtype,
@@ -342,9 +397,14 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                 "pos": torch.full((C,), -1, dtype=torch.int32,
                                   device=device)}
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
-            "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
-            "pos": torch.full((C,), -1, dtype=torch.int32, device=device)}
+    def heads(n):
+        return torch.zeros((batch, n, KV, hd), dtype=dtype, device=device)
+
+    cache = {"k": heads(C), "v": heads(C),
+             "pos": torch.full((C,), -1, dtype=torch.int32, device=device)}
+    if spec.cross_attn:
+        cache["xk"], cache["xv"] = heads(enc_frames), heads(enc_frames)
+    return cache
 
 
 def _ffn_block(cfg, spec, p, h):
@@ -353,10 +413,21 @@ def _ffn_block(cfg, spec, p, h):
     return h + y
 
 
-def _attend_out(cfg, spec, p, x, o):
-    """Attention output projection and the residual, then the FFN block."""
+def _attend_out(cfg, spec, p, x, o, cache):
+    """Attention output projection and the residual, then (a whisper
+    decoder layer) the cross-attention over the cached encoder K/V, every
+    frame valid and the queries not roped, then the FFN block."""
     B, T = x.shape[:2]
-    return _ffn_block(cfg, spec, p, x + o.reshape(B, T, -1) @ p["attn"]["wo"])
+    h = x + o.reshape(B, T, -1) @ p["attn"]["wo"]
+    if spec.cross_attn:
+        q = _gqa_q(cfg, p["xattn"], _apply_norm(cfg, p["norm_x"], h))
+        xk, xv = cache["xk"], cache["xv"]
+        mask = torch.ones((B, T, xk.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        ox = masked_decode_attention(q, xk, xv, mask,
+                                     _cross_spec(cfg, spec))
+        h = h + ox.reshape(B, T, -1) @ p["xattn"]["wo"]
+    return _ffn_block(cfg, spec, p, h)
 
 
 def _mla_decode(cfg: ModelConfig, p, x, cache: dict, pos: int):
@@ -433,7 +504,7 @@ def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p, x,
     if spec.kind == "attn_local" and cfg.window:
         mask &= (posv[:, :, None] - posa[None, None, :]) < cfg.window
     o = masked_decode_attention(q, cache["k"], cache["v"], mask, asp)
-    return _attend_out(cfg, spec, p, x, o), cache
+    return _attend_out(cfg, spec, p, x, o, cache), cache
 
 
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
@@ -481,4 +552,4 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
         valid &= (pos - posa) < cfg.window
     o = decode_attention(q, cache["k"], cache["v"],
                          valid[None].expand(B, C), asp)
-    return _attend_out(cfg, spec, p, x, o), cache
+    return _attend_out(cfg, spec, p, x, o, cache), cache

@@ -25,6 +25,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
     return (y * (offset + scale.to(torch.float32))).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm by the reference's formula: the mean, then the mean of
+    (x - mu)^2, both in float32, then scale and bias in float32 and a
+    cast back to x's type."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(dt)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
     if not cap:
@@ -72,6 +86,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of ``jax.nn.gelu``, x * 0.5 * (1 + tanh(sqrt(2/pi) *
+    (x + 0.044715 x^3))), rounded after each op in x's type, as XLA runs
+    it (in bf16, ``F.gelu`` rounds once and differs from it in about 40%
+    of the values)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+
+
 # jax.nn.gelu is the tanh approximation by default
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
          "relu": F.relu}
@@ -83,6 +106,14 @@ def gated_mlp(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     u = x @ p["wi_up"]
     h = (_ACTS[act](g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
     return h @ p["wo"]
+
+
+def dense_mlp(p, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
+    """p: {wi (D,F), bi (F,), wo (F,D), bo (D,)} (whisper-style); the
+    biases are added in x's type, as the reference adds its bf16 leaves."""
+    h = {"gelu": gelu, "silu": silu, "relu": F.relu}[act](
+        x @ p["wi"] + p["bi"])
+    return h @ p["wo"] + p["bo"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""LM: the decoder-only model over LayerSpecs (the reference's
-``models/model.py``): the training forward (``hidden_states``,
+"""LM: the decoder-only or encoder-decoder model over LayerSpecs (the
+reference's ``models/model.py``): the training forward (``hidden_states``,
 ``logits``, the chunked ``loss``), the parts the serving engine calls,
 and the dense ring-buffer decode (``init_cache``, ``decode_step``,
-``prefill_chunk``, ``prefill``).
+``prefill_chunk``, ``prefill``). With ``cfg.encoder`` (whisper) an
+encoder of non-causal attention layers (``encode``) runs over frame
+embeddings the caller supplies (``enc_embeds``, the reference's stub of
+the mel/conv frontend), and every decoder layer cross-attends to its
+output; ``warm_cache`` writes the cross K/V into the decode cache.
 
 Layers are grouped into repeating units; each group's parameters are
 stacked on a leading ``(repeats, ...)`` axis, exactly the reference's
@@ -28,12 +32,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import (LayerSpec, apply_layer_decode,
+from repro_torch.models.blocks import (LayerSpec, _gqa_kv,
+                                      apply_layer_decode,
                                       apply_layer_prefill_chunk,
                                       apply_layer_train, init_layer,
                                       init_layer_cache)
-from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
+                                       rms_norm, softcap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +99,25 @@ def _map_with(fn, paths, tree):
     return fn(paths, tree)
 
 
+def _named(prefix: str, tree):
+    """The reference's ``prefix + keystr(path)`` of every leaf of a dict
+    tree (``prefix`` itself for a bare leaf)."""
+    if isinstance(tree, dict):
+        return {k: _named(f"{prefix}[{k!r}]", v) for k, v in tree.items()}
+    return prefix
+
+
+def _norm_params(cfg: ModelConfig) -> dict | torch.Tensor:
+    if cfg.norm == "ln":
+        return {"scale": torch.ones(cfg.d_model),
+                "bias": torch.zeros(cfg.d_model)}
+    return torch.zeros(cfg.d_model)
+
+
 class LM:
-    """Decoder-only language model (GQA or MLA attention, dense or MoE
-    FFNs, Mamba and RWKV-6 layers)."""
+    """Language model (GQA or MLA attention, dense or MoE FFNs, Mamba and
+    RWKV-6 layers), decoder-only or, with ``cfg.encoder``, encoder-decoder
+    (whisper)."""
 
     compute_dtype = torch.bfloat16
 
@@ -104,6 +125,12 @@ class LM:
         self.cfg = cfg
         self.specs = build_layer_specs(cfg)
         self.groups = build_groups(cfg, self.specs)
+        if cfg.encoder:
+            self.enc_cfg = dataclasses.replace(
+                cfg, num_layers=cfg.encoder.num_layers, moe_every=0,
+                layer_pattern=("attn",), first_layer_dense_ff=0)
+            self.enc_specs = build_layer_specs(self.enc_cfg, decoder=False)
+            self.enc_groups = build_groups(self.enc_cfg, self.enc_specs)
 
     def init(self, gen: torch.Generator, *, device=None) -> dict:
         """Float32 params in the reference's tree layout, drawn from
@@ -120,41 +147,58 @@ class LM:
         size."""
         return self._build(None)
 
+    @staticmethod
+    def _build_groups(cfg, groups, gen) -> tuple:
+        return tuple({f"pos{j}": _stack([init_layer(cfg, spec, gen)
+                                         for _ in range(g.repeats)])
+                      for j, spec in enumerate(g.unit)}
+                     for g in groups)
+
     def _build(self, gen: Optional[torch.Generator]) -> dict:
         cfg = self.cfg
         params = {
             "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)),
-            "groups": tuple(
-                {f"pos{j}": _stack([init_layer(cfg, spec, gen)
-                                    for _ in range(g.repeats)])
-                 for j, spec in enumerate(g.unit)}
-                for g in self.groups),
-            "final_norm": torch.zeros(cfg.d_model),
+            "groups": self._build_groups(cfg, self.groups, gen),
+            "final_norm": _norm_params(cfg),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model,
                                                  cfg.vocab_size))
+        if cfg.encoder:
+            params["encoder"] = {
+                "pos_embed": embed_init(gen, (cfg.encoder.num_frames,
+                                              cfg.d_model)),
+                "groups": self._build_groups(self.enc_cfg, self.enc_groups,
+                                             gen),
+                "final_norm": _norm_params(cfg),
+            }
         return params
 
     def param_paths(self, params) -> dict:
         """Tree of path strings aligned with ``params``: the reference's
         gather paths (``"embed"``, ``"g0/pos0['attn']['wq']"``, ...), which
         policies are resolved against."""
-        def named(prefix, tree):
-            if isinstance(tree, dict):
-                return {k: named(f"{prefix}[{k!r}]", v)
-                        for k, v in tree.items()}
-            return prefix
+        def group_paths(groups_p, prefix=""):
+            return tuple({k: _named(f"{prefix}g{gi}/{k}", gp[k])
+                          for k in gp} for gi, gp in enumerate(groups_p))
 
         out = {"embed": "embed",
-               "final_norm": named("final_norm", params["final_norm"]),
-               "groups": tuple({k: named(f"g{gi}/{k}", gp[k]) for k in gp}
-                               for gi, gp in enumerate(params["groups"]))}
+               "final_norm": _named("final_norm", params["final_norm"]),
+               "groups": group_paths(params["groups"])}
         if "lm_head" in params:
             out["lm_head"] = "lm_head"
+        if "encoder" in params:
+            enc = params["encoder"]
+            out["encoder"] = {
+                "pos_embed": "enc/['pos_embed']",
+                "final_norm": _named("enc/['final_norm']",
+                                     enc["final_norm"]),
+                "groups": group_paths(enc["groups"], "enc/")}
         return out
 
     def _final_norm(self, p, x):
+        if self.cfg.norm == "ln":
+            return layer_norm(x, p["scale"], p["bias"], self.cfg.norm_eps)
         return rms_norm(x, p, self.cfg.norm_eps)
 
     def _cast(self, leaf: torch.Tensor) -> torch.Tensor:
@@ -170,6 +214,12 @@ class LM:
             return self._cast(leaf)
         return self._cast(gather(path, leaf, salt))
 
+    def _gather_tree(self, tree, gather, prefix: str, salt):
+        """Every leaf of ``tree`` through :meth:`_gather_leaf` under the
+        path ``prefix + keystr`` (the reference's ``_gather_tree``)."""
+        return _map_with(lambda p, t: self._gather_leaf(p, t, salt, gather),
+                         _named(prefix, tree), tree)
+
     def _head(self, params, gather=None) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return self._gather_leaf("embed", params["embed"], 0, gather).T
@@ -178,20 +228,13 @@ class LM:
     # ------------------------------------------------------------------
     # training forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params, tokens: torch.Tensor, gather=None):
-        """tokens (B, S) -> (final-normed hidden states (B, S, D) bf16,
-        aux loss). Each group's stacked layers run in order.
-
-        ``gather(path, leaf, salt) -> full leaf`` (the reference's gather
-        hook, e.g. the per-leaf fsdp all-gather) is called on each leaf at
-        its point of use: ``embed`` and ``final_norm`` whole with salt 0,
-        a stacked layer leaf one repeat's slice at a time with the repeat
-        index as its salt, under the paths of :meth:`param_paths`."""
-        cfg = self.cfg
-        paths = self.param_paths(params) if gather is not None else None
-        x = self._embed(params, tokens, gather)
+    def _run_groups(self, cfg, groups, group_params, x, gather,
+                    prefix="", enc_out=None):
+        """Each group's stacked layers in order -> (x, aux). A layer leaf
+        is gathered one repeat's slice at a time, the repeat index as its
+        salt, under ``prefix + "g{gi}/pos{j}" + keystr``."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for gi, (g, gp) in enumerate(zip(self.groups, params["groups"])):
+        for gi, (g, gp) in enumerate(zip(groups, group_params)):
             for r in range(g.repeats):
                 for j, spec in enumerate(g.unit):
                     unit = gp[f"pos{j}"]
@@ -201,24 +244,62 @@ class LM:
                         pj = _map_with(
                             lambda p, t: self._gather_leaf(p, t[r], r,
                                                            gather),
-                            paths["groups"][gi][f"pos{j}"], unit)
-                    x, a = apply_layer_train(cfg, spec, pj, x)
+                            _named(f"{prefix}g{gi}/pos{j}", unit), unit)
+                    x, a = apply_layer_train(cfg, spec, pj, x,
+                                             enc_out=enc_out)
                     aux = aux + a
-        fp = self._gather_leaf("final_norm", params["final_norm"], 0, gather)
+        return x, aux
+
+    def encode(self, params, enc_embeds: torch.Tensor, gather=None):
+        """Frame embeddings (B, frames, D) -> the encoder's final-normed
+        output (B, frames, D) bf16: ``pos_embed`` added in bf16, the
+        non-causal attention layers, the final layer norm. ``pos_embed``
+        and ``final_norm`` are gathered under ``"enc/"`` with salt 0."""
+        enc = params["encoder"]
+        ep = self._gather_tree({"pos_embed": enc["pos_embed"],
+                                "final_norm": enc["final_norm"]},
+                               gather, "enc/", 0)
+        x = enc_embeds.to(torch.bfloat16) + ep["pos_embed"][None]
+        x, _ = self._run_groups(self.enc_cfg, self.enc_groups, enc["groups"],
+                                x, gather, prefix="enc/")
+        return self._final_norm(ep["final_norm"], x)
+
+    def hidden_states(self, params, tokens: torch.Tensor, gather=None,
+                      enc_embeds=None):
+        """tokens (B, S) [and, with an encoder, ``enc_embeds`` (B, frames,
+        D)] -> (final-normed hidden states (B, S, D) bf16, aux loss).
+        Each group's stacked layers run in order.
+
+        ``gather(path, leaf, salt) -> full leaf`` (the reference's gather
+        hook, e.g. the per-leaf fsdp all-gather) is called on each leaf at
+        its point of use: ``embed`` and each ``final_norm`` leaf whole
+        with salt 0, a stacked layer leaf one repeat's slice at a time
+        with the repeat index as its salt, under the paths of
+        :meth:`param_paths`."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, gather)
+        enc_out = (self.encode(params, enc_embeds, gather) if cfg.encoder
+                   else None)
+        x, aux = self._run_groups(cfg, self.groups, params["groups"], x,
+                                  gather, enc_out=enc_out)
+        fp = self._gather_tree(params["final_norm"], gather, "final_norm", 0)
         return self._final_norm(fp, x), aux
 
-    def logits(self, params, tokens: torch.Tensor, gather=None):
-        x, aux = self.hidden_states(params, tokens, gather)
+    def logits(self, params, tokens: torch.Tensor, gather=None,
+               enc_embeds=None):
+        x, aux = self.hidden_states(params, tokens, gather, enc_embeds)
         lg = (x @ self._head(params, gather)).to(torch.float32)
         return softcap(lg, self.cfg.final_softcap), aux
 
     def loss(self, params, batch, gather=None, *, loss_chunk: int = 512):
-        """batch: {tokens (B, S)}. Next-token cross entropy, computed in
-        sequence chunks so (B, S, V) logits never exist at once. Returns
-        (loss, {"nll", "aux", "tokens"}) like the reference. ``gather`` as
-        in :meth:`hidden_states` (the head too, salt 0)."""
+        """batch: {tokens (B, S) [, enc_embeds (B, frames, D)]}. Next-token
+        cross entropy, computed in sequence chunks so (B, S, V) logits
+        never exist at once. Returns (loss, {"nll", "aux", "tokens"}) like
+        the reference. ``gather`` as in :meth:`hidden_states` (the head
+        too, salt 0)."""
         tokens = batch["tokens"].long()
-        x, aux = self.hidden_states(params, tokens, gather)
+        x, aux = self.hidden_states(params, tokens, gather,
+                                    batch.get("enc_embeds"))
         head = self._head(params, gather)
         inputs, targets = x[:, :-1], tokens[:, 1:]
         T = inputs.shape[1]
@@ -243,12 +324,13 @@ class LM:
         layer caches stacked on a leading ``(repeats, ...)`` axis, as the
         reference lays them out; on the card unless ``device="cpu"``."""
         device = resolve_device(device)
+        frames = self.cfg.encoder.num_frames if self.cfg.encoder else 0
         caches = []
         for g in self.groups:
             gc = {}
             for j, spec in enumerate(g.unit):
                 one = init_layer_cache(self.cfg, spec, batch, max_len, dtype,
-                                       device=device)
+                                       device=device, enc_frames=frames)
                 gc[f"pos{j}"] = {k: torch.stack([t] * g.repeats)
                                  for k, t in one.items()}
             caches.append(gc)
@@ -276,9 +358,32 @@ class LM:
                     for k, t in new.items():
                         if t is not cj[k]:
                             cj[k].copy_(t)
-        x = self._final_norm(self._cast(params["final_norm"]), x)
+        x = self._final_norm(self._cast_tree(params["final_norm"]), x)
         lg = (x @ self._head(params).to(x.dtype)).to(torch.float32)
         return softcap(lg, self.cfg.final_softcap)
+
+    @torch.no_grad()
+    def warm_cache(self, params, cache, enc_embeds: torch.Tensor,
+                   gather=None):
+        """Whisper's cross-attention K/V of every decoder layer from the
+        encoder's output on ``enc_embeds``, written into ``cache`` in the
+        cache's type (in place; returned). As in the reference, the
+        projection multiplies the bf16 encoder output by the layer's
+        weights as they are (float32 weights: a float32 product)."""
+        if not self.cfg.encoder:
+            return cache
+        enc_out = self.encode(params, enc_embeds, gather)
+        for g, gp, gc in zip(self.groups, params["groups"], cache):
+            for j, spec in enumerate(g.unit):
+                if not spec.cross_attn:
+                    continue
+                xp, cj = gp[f"pos{j}"]["xattn"], gc[f"pos{j}"]
+                for r in range(g.repeats):
+                    k, v = _gqa_kv(self.cfg, {n: t[r] for n, t in xp.items()},
+                                   enc_out)
+                    cj["xk"][r].copy_(k)
+                    cj["xv"][r].copy_(v)
+        return cache
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
@@ -311,9 +416,12 @@ class LM:
                 self.cfg, spec, p, x, c, int(start)))
         return lg, cache
 
-    def prefill(self, params, cache, tokens: torch.Tensor):
+    def prefill(self, params, cache, tokens: torch.Tensor, enc_embeds=None):
         """Sequential prefill through :meth:`decode_step`, one token at a
-        time (the reference loop) -> (last logits (B, 1, V), cache)."""
+        time (the reference loop) -> (last logits (B, 1, V), cache); with
+        an encoder, :meth:`warm_cache` on ``enc_embeds`` first."""
+        if self.cfg.encoder:
+            cache = self.warm_cache(params, cache, enc_embeds)
         lg = None
         for i in range(tokens.shape[1]):
             lg, cache = self.decode_step(params, cache, tokens[:, i:i + 1],

@@ -41,7 +41,8 @@ def test_port_files_found():
                 "configs/gemma3_27b.py", "models/moe.py",
                 "configs/mixtral_8x22b.py", "configs/deepseek_v2_236b.py",
                 "models/ssm.py", "models/rwkv.py",
-                "configs/jamba_v01_52b.py", "configs/rwkv6_3b.py"):
+                "configs/jamba_v01_52b.py", "configs/rwkv6_3b.py",
+                "configs/whisper_base.py"):
         assert port / rel in PORT_FILES, rel
 
 
@@ -61,21 +62,32 @@ def test_cut_depth_refuses_a_depth_the_config_lacks(n):
 
 @pytest.mark.parametrize("launcher", ["train", "serve"])
 def test_launchers_refuse_unported_arch_by_name(launcher, capsys):
-    """``--arch`` takes only the registered (ported) configs; another
-    reference arch is refused while parsing, by name."""
+    """Every reference config is registered. whisper-base serves on the
+    dense path (its frame embeddings drawn by the launcher, the cache
+    warmed before the clock); the training launcher refuses it while
+    parsing, by name, because its token stream carries no frame
+    embeddings: whisper trains through ``make_train_step``."""
+    from repro.configs.base import list_archs as reference_archs
     from repro_torch.configs.base import list_archs
     from repro_torch.launch import train as train_launcher
 
-    assert "whisper-base" not in list_archs()
-    assert {"gemma2-9b", "qwen1.5-32b", "mixtral-8x22b",
-            "deepseek-v2-236b", "jamba-v0.1-52b",
-            "rwkv6-3b"} <= set(list_archs())
-    run = {"train": train_launcher.train,
-           "serve": serve_launcher.serve}[launcher]
+    assert list_archs() == reference_archs()
+    args = ["--arch", "whisper-base", "--smoke", "--device", "cpu"]
+    if launcher == "serve":
+        r = serve_launcher.serve(args + ["--batch", "8", "--prompt-len", "8",
+                                         "--gen", "3", "--max-len", "128",
+                                         "--prefill-chunk", "4"])
+        assert r["path"] == "dense" and r["engine"] is None
+        assert r["prefill_chunk"] == 4 and r["tokens"].shape == (8, 3)
+        assert r["cache_bytes"] == 648_192 and r["cross_bytes"] == 7_680
+        assert r["warm_cache_s"] is not None
+        return
     with pytest.raises(SystemExit) as e:
-        run(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
+        train_launcher.train(args)
     assert e.value.code == 2
-    assert "whisper-base" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "whisper-base" in err and "make_train_step" in err
+    assert "enc_embeds" in err
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -143,11 +155,12 @@ def test_launcher_needs_kv_quant():
 
 
 @pytest.mark.parametrize("change", [{"norm": "ln"}, {"kind": "mamba"},
-                                    {"cross_attn": True}, {"kind": "rwkv"}])
+                                    {"cross_attn": True}, {"kind": "rwkv"},
+                                    {"kind": "conv"}])
 def test_unported_layer_kinds_point_to_the_roadmap(change):
-    """A layer the port does not run (layer norm, cross-attention) is
-    refused by name, pointing to ROADMAP.md as the other refusals do;
-    Mamba and RWKV layers are admitted."""
+    """Layer norm, cross-attention, Mamba and RWKV layers are admitted; a
+    layer kind the port does not know is refused by name, pointing to
+    ROADMAP.md as the other refusals do."""
     import dataclasses
 
     from repro_torch.models.blocks import check_ported_layer
@@ -160,11 +173,12 @@ def test_unported_layer_kinds_point_to_the_roadmap(change):
         cfg = dataclasses.replace(cfg, **change)
     else:
         spec = dataclasses.replace(spec, **change)
-    if change.get("kind") in ("mamba", "rwkv"):
+    if change.get("kind") != "conv":
         check_ported_layer(cfg, spec)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         check_ported_layer(cfg, spec)
+    assert "'conv'" in str(e.value)
 
 
 @pytest.mark.parametrize("change,message", [
@@ -177,18 +191,30 @@ def test_unported_layer_kinds_point_to_the_roadmap(change):
      "paged KV serving supports GQA attention stacks only"),
     ({"arch": "rwkv6-3b"},
      "paged KV serving supports GQA attention stacks only"),
+    ({"arch": "whisper-base"},
+     "paged KV serving supports GQA attention stacks only"),
 ])
 def test_paged_engine_refuses_moe_and_mla(change, message):
-    """MoE, MLA, Mamba and RWKV layers run in training and on the dense
-    serve path; the paged engine refuses them as the reference's does
-    (MoE capacity dispatch couples the tokens of a batch; a recurrent
-    layer has no KV pages)."""
+    """MoE, MLA, Mamba, RWKV and encoder-decoder models run in training
+    and on the dense serve path; the paged engine refuses them as the
+    reference's does (MoE capacity dispatch couples the tokens of a
+    batch; a recurrent layer has no KV pages; the cross K/V of an encoder
+    have no pages either)."""
     import dataclasses
 
     model = LM(get_smoke_config(change["arch"]) if "arch" in change else
                dataclasses.replace(get_smoke_config("lm-100m"), **change))
     cfg = ServeConfig(kv_quant="orq-9", page_size=4, max_batch=1,
                       max_pages_per_seq=2, prefill_chunk=4)
-    with pytest.raises(ValueError, match=message):
+    with pytest.raises(ValueError, match=message) as got:
         Engine(model, model.init(torch.Generator().manual_seed(0),
                                  device="cpu"), cfg, device="cpu")
+    if change.get("arch") == "whisper-base":
+        from repro.configs.base import get_smoke_config as jget_smoke_config
+        from repro.models import LM as JLM
+        from repro.serve import Engine as JEngine
+
+        with pytest.raises(ValueError) as want:
+            JEngine._validate(JLM(jget_smoke_config("whisper-base")))
+        assert str(got.value) == str(want.value)
+        assert "encoder=True" in str(got.value)
