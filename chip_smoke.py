@@ -259,6 +259,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             version; (d) the same at published widths, bucket 2048,
             8 x 128 tokens and (8, 1500, 512) frames: wire bytes
             101,427,160 / 25,261,104 at L = 1, step p50 and own peak.
+24. model_parallel  lm-100m at full width, tensor-parallel in a 1
+            (data) x 2 (model) world of two processes sharing the card
+            (``python3 chip_smoke.py --model-parallel-worker RANK DIR``,
+            started by the script): a gloo world, each process's dp group
+            a one-rank NCCL group, the model group gloo on CUDA tensors
+            (NCCL refuses two ranks on one card); each group's backend is
+            printed. (a) the training and serving plans and their quirks;
+            (b) the launcher (``train(argv, mesh=...)``) on the stream of
+            phase 7, 2 + 1 EF replicated orq-9 steps and 2 BinGrad-b
+            steps: every kernel call recorded at its dispatcher and held
+            against its plain version by phase 21's rules, the launches a
+            process (encode 6, mean 3, each 3, qdq 1; BinGrad-b encode 4,
+            mean 2, each 2), the world of one's wire bytes, dp and
+            model-group collectives a step, step ms and own peak; (c) 2
+            per-leaf fsdp orq-9 steps (222 encodes and mean decodes at the
+            TP blocks' shapes, held the same way); (d) the sharded dense
+            decode, batch 8 and context 512, 64 prompt tokens through the
+            chunked prefill then 8 greedy steps, then ``seq_sharded`` with
+            batch 1 (8 steps): p50, and on rank 0 the logits against the
+            same card's world of one fed the same tokens (within
+            MP_ATOL; greedy picks equal where its top-2 margin exceeds
+            MP_MARGIN). A failure in either process fails the phase. Times
+            through the gloo model group are not tensor-parallel speed.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -3756,14 +3779,16 @@ def _check_recorded(calls, before, what):
         raise AssertionError(f"{what}: recorded {seen}, launched {step}")
 
 
-def _hold_exchange_calls(torch, arch, quant, calls, smi, phase="moe_mla"):
+def _hold_exchange_calls(torch, arch, quant, calls, smi, phase="moe_mla",
+                         brief=False):
     """The recorded kernel calls of one training step, each kernel against
     its plain version on the same inputs, by the rules of phase 3:
     ``encode_fused``'s words and both decodes equal by value, ``qdq_fused``
     bit for bit; ``encode_bingrad_fused``'s levels bit-equal to
     ``kernel_order_levels``, within LEVEL_RTOL of the plain fit's (at most
     FLIP_SHARE of the rows beyond it, none beyond FLIP_RTOL), its words
-    the exact threshold of its own levels."""
+    the exact threshold of its own levels. ``brief``: the line counts the
+    calls of each kernel and shape instead of listing them."""
     from repro_torch.kernels import fused_bingrad as fb
     from repro_torch.kernels import fused_decode as fd
     from repro_torch.kernels import fused_encode as fe
@@ -3825,6 +3850,14 @@ def _hold_exchange_calls(torch, arch, quant, calls, smi, phase="moe_mla"):
         rows.append(row)
         if bad:
             failed.append(row)
+    if brief:
+        groups = {}
+        for row in rows:
+            g = groups.setdefault((row["call"], tuple(row["shape"])), dict(
+                call=row["call"], shape=row["shape"], calls=0, failed=0))
+            g["calls"] += 1
+            g["failed"] += row in failed
+        rows = list(groups.values())
     emit(phase, what="train step's kernel calls vs plain", arch=arch,
          quant=quant, calls=rows, device=smi)
     if failed:
@@ -4571,6 +4604,285 @@ def run_whisper(torch, dev):
     return total
 
 
+MP_TRAIN = [("orq-9", [["--steps", "2"], ["--steps", "1",
+                                            "--error-feedback"]]),
+            ("bingrad-b", [["--steps", "2"]]),
+            ("orq-9 fsdp", [["--steps", "2", "--mode", "fsdp"]])]
+#: each process's launches: 2 + 1 EF replicated orq-9 steps, 2 BinGrad-b
+#: steps (L = 1: the fused exchange of the gathered gradient), 2 per-leaf
+#: fsdp steps (one reduce-scatter of each gather call's TP block)
+MP_EXPECT = {"orq-9": {"encode_fused": 6, "decode_fused_mean": 3,
+                       "decode_fused_each": 3, "qdq_fused": 1},
+             "bingrad-b": {"encode_bingrad_fused": 4,
+                           "decode_fused_mean": 2, "decode_fused_each": 2},
+             "orq-9 fsdp": {"encode_fused": 222, "decode_fused_mean": 222}}
+MP_WIRE = {"orq-9": TRAIN_WIRE_BYTES, "bingrad-b": 34_878_624}
+MP_SERVE = dict(batch=8, max_len=512, prompt=64, steps=8, seq_steps=8)
+MP_MARGIN = 2 * 0.06          # the dense decode's bf16 noise bound
+MP_ATOL = 0.25                # full width, 12 layers of bf16 parts
+MP_TIMEOUT_S = 600
+
+
+def _mp_train(torch, mesh, smi, rank):
+    """(b), (c): the launcher on the 1 x 2 mesh, every kernel call of each
+    run recorded at its dispatcher and held against its plain version
+    (phase 21's rules) -> the launches of every run."""
+    from repro_torch.launch import train as launcher
+
+    total = {}
+    for quant, runs in MP_TRAIN:
+        calls = []
+        _zero_counters()
+        before = _read_counters()
+        rows = []
+        restore = _record_ops(torch, calls)
+        try:
+            for extra in runs:
+                args = list(TRAIN_ARGS) + ["--model-parallel", "2", *extra]
+                args[args.index("--quant") + 1] = quant.split()[0]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                r = launcher.train(args, mesh=mesh)
+                peak = torch.cuda.max_memory_allocated() - base
+                losses = [h["loss"] for h in r["history"]]
+                rows.append(dict(
+                    args=" ".join(args), losses=losses, step_s=r["step_s"],
+                    step_p50_ms=statistics.median(r["step_s"]) * 1e3,
+                    wire_bytes_per_worker=r["wire_bytes_per_worker"],
+                    dp_collectives_per_step=r[
+                        "collective_launches_per_step"],
+                    model_collectives_per_step=r[
+                        "model_collectives_per_step"],
+                    params_sha256=r["params_sha256"],
+                    replicas_in_sync=r["replicas_in_sync"],
+                    peak_mem_above_start=peak))
+                if not all(x == x and abs(x) < float("inf")
+                           for x in losses) or not r["replicas_in_sync"]:
+                    raise AssertionError(f"model_parallel {quant}: {rows}")
+                want_wire = MP_WIRE.get(quant)
+                if want_wire is not None and \
+                        r["wire_bytes_per_worker"] != want_wire:
+                    raise AssertionError(
+                        f"model_parallel {quant}: wire bytes "
+                        f"{r['wire_bytes_per_worker']} != {want_wire}")
+        finally:
+            restore()
+        _check_recorded(calls, before, f"model_parallel {quant}")
+        launches = _read_counters()
+        want = _expect(MP_EXPECT[quant])
+        emit("model_parallel", rank=rank, what=f"train {quant}", runs=rows,
+             launches=launches, expected_launches=want,
+             note="the model group is gloo through the host: these step "
+                  "times are not tensor-parallel speed", device=smi)
+        if launches != want:
+            raise AssertionError(f"model_parallel {quant}: launches "
+                                 f"{launches} != {want}")
+        _hold_exchange_calls(torch, "lm-100m", quant, calls, smi,
+                             phase="model_parallel", brief=True)
+        del calls
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _mp_decode(torch, dev, mesh, smi, rank):
+    """(d): the sharded dense decode at full width, batch 8 over the dp
+    axis (of one) with the slots over ``model``, then ``seq_sharded``
+    with batch 1: greedy tokens, p50, held on rank 0 against the same
+    card's world of one fed the same tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.serve.step import (make_chunked_prefill_step,
+                                        make_serve_step, plan_serve_sharding)
+
+    sv = MP_SERVE
+    model = LM(get_config("lm-100m"))
+    params = map_tree(lambda t: t.to(torch.bfloat16), model.init(
+        torch.Generator().manual_seed(0), device=dev))
+    prompt = torch.randint(0, model.cfg.vocab_size,
+                           (sv["batch"], sv["prompt"]),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {}
+    for seq in (False, True):
+        b = 1 if seq else sv["batch"]
+        plan = plan_serve_sharding(model, model.abstract_params(),
+                                   model.abstract_cache(b, sv["max_len"]),
+                                   mesh, seq_sharded=seq)
+        pb = shard_params(params, plan, mesh.coords)
+        cache = shard_cache(model.init_cache(b, sv["max_len"], device=dev),
+                            plan, mesh.coords)
+        step = make_serve_step(model, mesh, plan, batch_dp=not seq)
+        c0 = mesh.model_axis.collectives
+        lgs, step_s = [], []
+        if seq:
+            toks, start = prompt[:1, :1], 0
+        else:
+            pre = make_chunked_prefill_step(model, mesh, plan)
+            lg, cache = pre(pb, cache, prompt, 0)
+            lgs.append(lg[:, -1:])
+            toks, start = lg[:, -1].argmax(-1)[:, None], sv["prompt"]
+        fed = [toks]
+        n = sv["seq_steps"] if seq else sv["steps"]
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(pb, cache, toks, start + i)
+            toks = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            lgs.append(lg)
+            fed.append(toks)
+        name = "seq_sharded" if seq else "batch"
+        row = dict(layout=name, batch=b, max_len=sv["max_len"],
+                   cache_k_spec=plan.cache_specs[0]["pos0"]["k"],
+                   decode_p50_ms=statistics.median(step_s) * 1e3,
+                   step_ms=[x * 1e3 for x in step_s],
+                   model_collectives=mesh.model_axis.collectives - c0,
+                   tokens=torch.cat(fed, 1).tolist())
+        if rank == 0:
+            # the same card's world of one, fed the same tokens
+            ref_cache = model.init_cache(b, sv["max_len"], device=dev)
+            want = []
+            if seq:
+                pos0 = 0
+            else:
+                lg, ref_cache = model.prefill_chunk(params, ref_cache,
+                                                    prompt, 0)
+                want.append(lg[:, -1:])
+                pos0 = sv["prompt"]
+            for i in range(n):
+                lg, ref_cache = model.decode_step(params, ref_cache,
+                                                  fed[i], pos0 + i)
+                want.append(lg)
+            got, want = torch.cat(lgs, 1), torch.cat(want, 1)
+            top2 = want.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > MP_MARGIN
+            agree = got.argmax(-1)[clear] == want.argmax(-1)[clear]
+            row.update(max_abs_err=float((got - want).abs().max()),
+                       atol=MP_ATOL, clear_picks=int(clear.sum()),
+                       picks=int(clear.numel()),
+                       clear_picks_equal=bool(agree.all()))
+            if row["max_abs_err"] > MP_ATOL or not row["clear_picks_equal"]:
+                raise AssertionError(f"model_parallel decode {name}: {row}")
+        out[name] = row
+        emit("model_parallel", rank=rank, what=f"(d) sharded decode {name}",
+             note="the model group is gloo through the host: not "
+                  "tensor-parallel speed", device=smi,
+             **{k: v for k, v in row.items() if k != "tokens"})
+    return out
+
+
+def _mp_plans(torch, mesh, smi, rank):
+    """(a): the full-width lm-100m plans on this mesh, with the quirks the
+    compute must accept."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve.step import plan_serve_sharding
+    from repro_torch.train.step import plan_sharding
+
+    model = LM(get_config("lm-100m"))
+    ap = model.abstract_params()
+    tp = plan_sharding(model, ap, mesh).tp_dims
+    sv = plan_serve_sharding(model, ap, model.abstract_cache(
+        MP_SERVE["batch"], MP_SERVE["max_len"]), mesh)
+    sq = plan_serve_sharding(model, ap, model.abstract_cache(
+        1, MP_SERVE["max_len"]), mesh, seq_sharded=True)
+    row = dict(train_tp_leaves=sum(d is not None for d in tp.values()),
+               leaves=len(tp), attn_wo=tp["g0/pos0['attn']['wo']"],
+               ffn_wo=tp["g0/pos0['ffn']['wo']"], embed=tp["embed"],
+               lm_head=tp["lm_head"],
+               serve_wq=sv.tp_dims()["g0/pos0['attn']['wq']"],
+               cache_k=sv.cache_specs[0]["pos0"]["k"],
+               cache_pos=sv.cache_specs[0]["pos0"]["pos"],
+               seq_cache_k=sq.cache_specs[0]["pos0"]["k"])
+    emit("model_parallel", rank=rank, what="(a) plans", device=smi, **row)
+    if (row["attn_wo"], row["ffn_wo"], row["embed"], row["lm_head"],
+            row["serve_wq"]) != (1, 0, 0, 1, 0) or row["cache_k"][2] != \
+            "model" or row["seq_cache_k"][2] != ("data", "model"):
+        raise AssertionError(f"model_parallel plans: {row}")
+
+
+def model_parallel_worker(rank: int, tmp: str) -> int:
+    """One of phase 24's two processes on the one card: a gloo world of
+    two, the dp groups one-rank NCCL groups, the model group gloo on CUDA
+    tensors (NCCL refuses two ranks on one card)."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=2)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        smi = nvidia_smi()
+        mesh = make_host_mesh(model=2, dp_backend="nccl",
+                              model_backend="gloo")
+        emit("model_parallel", rank=rank, what="mesh",
+             shape=dict(mesh.sizes), coords=mesh.coords,
+             backends={"dp": dist.get_backend(mesh.dp_group),
+                       "model": dist.get_backend(mesh.model_group),
+                       "world": dist.get_backend()}, device=smi)
+        _mp_plans(torch, mesh, smi, rank)
+        launches = _mp_train(torch, mesh, smi, rank)
+        decode = _mp_decode(torch, dev, mesh, smi, rank)
+        with open(f"{tmp}/launches{rank}.json", "w") as f:
+            json.dump({"launches": launches,
+                       "decode_p50_ms": {k: v["decode_p50_ms"]
+                                         for k, v in decode.items()}}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_model_parallel(torch):
+    """Phase 24: the 1 (data) x 2 (model) world as two processes sharing
+    the card; a failure in either fails the phase. -> the launches of
+    both processes, summed."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--model-parallel-worker", str(r), tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=MP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0]:
+        raise AssertionError(f"model_parallel: worker exit codes {rcs}: "
+                             + "\n".join(o[-4000:] for o in outs))
+    total, p50 = {}, {}
+    for r in range(2):
+        with open(f"{tmp}/launches{r}.json") as f:
+            got = json.load(f)
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+        p50[r] = got["decode_p50_ms"]
+    emit("model_parallel", what="launches of both processes",
+         launches=total, decode_p50_ms=p50)
+    return total
+
+
 def start_world(torch):
     """A world of one process on NCCL, rendezvous through a file store in a
     temporary directory (no network)."""
@@ -4585,6 +4897,8 @@ def start_world(torch):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--model-parallel-worker"]:
+        return model_parallel_worker(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4692,6 +5006,8 @@ def main() -> int:
     lap("recurrent")
     whisper_launches = run_whisper(torch, dev)
     lap("whisper")
+    mp_par_launches = run_model_parallel(torch)
+    lap("model_parallel")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -4709,7 +5025,8 @@ def main() -> int:
              "serve_archs": arch_launches,
              "moe_mla": moe_launches,
              "recurrent": rec_launches,
-             "whisper": whisper_launches}
+             "whisper": whisper_launches,
+             "model_parallel": mp_par_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -8,7 +8,16 @@ quantized reduce-scatter of the leaf's cotangent: the per-leaf fsdp path
 gathers each leaf (each stacked layer's slice) at its point of use.
 ``make_replicated_gather`` is the identity-forward variant for leaves that
 stay dp-replicated: its backward is the full Algorithm 2 all-reduce.
-Tensor parallelism (the reference's ``tp_dim``) is not ported.
+
+Under a model axis each rank stores and computes with its TP block of a
+leaf (``models/tp.py``). The fsdp gather then moves that block, full over
+the dp group, and its backward reduce-scatters this rank's TP block of
+the cotangent over the dp group, keyed by the dp index alone: the rounding
+bits are shared across model ranks, whose blocks hold disjoint data (the
+reference's nested manual region over ``model``, ``gather.py:72-93``).
+A dp-replicated leaf with a TP block gathers its cotangent over the model
+axis, so the Algorithm 2 all-reduce quantizes the whole leaf, as the
+reference's does, and keeps this rank's block of the mean.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from repro_torch.core.comm.collectives import (quantized_all_reduce_mean,
 from repro_torch.core.comm.fsdp_exchange import (all_gather_dim,
                                                  reduce_scatter_mean_block)
 from repro_torch.core.quantizers import Quantizer
+from repro_torch.models import tp as tp_mod
 
 
 class _FsdpGather(torch.autograd.Function):
@@ -45,14 +55,18 @@ class _FsdpGather(torch.autograd.Function):
 class _ReplicatedGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, key, qz, group, compute_dtype, param_dtype,
-                server_requant):
+                server_requant, tp_axis, tp_dim):
         ctx.key, ctx.qz, ctx.group = key, qz, group
         ctx.param_dtype, ctx.server_requant = param_dtype, server_requant
+        ctx.tp_axis, ctx.tp_dim = tp_axis, tp_dim
         ctx.wid = world(group)[1]
         return w.to(compute_dtype).clone()
 
     @staticmethod
     def backward(ctx, g):
+        tp = ctx.tp_axis is not None and ctx.tp_dim is not None
+        if tp:
+            g = tp_mod.gather_dim(ctx.tp_axis, g.contiguous(), ctx.tp_dim)
         flat = g.to(torch.float32).reshape(-1)
         if ctx.qz.is_identity:
             mean = flat.clone()
@@ -63,7 +77,9 @@ class _ReplicatedGather(torch.autograd.Function):
                 flat, ctx.qz, ctx.key, group=ctx.group, worker_id=ctx.wid,
                 server_requant=ctx.server_requant)
         out = mean.reshape(g.shape).to(ctx.param_dtype)
-        return out, None, None, None, None, None, None
+        if tp:
+            out = tp_mod.own_block(ctx.tp_axis, out, ctx.tp_dim).contiguous()
+        return out, None, None, None, None, None, None, None, None
 
 
 def make_fsdp_gather(qz: Quantizer, group=None, *, dim: int,
@@ -75,12 +91,13 @@ def make_fsdp_gather(qz: Quantizer, group=None, *, dim: int,
     fwd: cast + all-gather along ``dim`` over the dp group (the FSDP
          parameter broadcast; bf16 on the wire).
     bwd: the quantized reduce-scatter of the full-size cotangent, key
-         folded by this worker's rank; the f32 result has the stored
-         shard's shape."""
-    if tp_dim is not None:
-        raise NotImplementedError(
-            "tensor parallelism (tp_dim) is not ported to repro_torch yet "
-            "(see ROADMAP.md)")
+         folded by this worker's rank in the dp group; the f32 result has
+         the stored shard's shape.
+
+    With ``tp_dim`` (the leaf's TP dim) the shard is this rank's TP
+    block's: the gather gives the TP block and the backward quantizes this
+    rank's TP block of the cotangent, with the key every model rank of
+    this dp index shares."""
 
     def gather(w, key):
         return _FsdpGather.apply(w, key, qz, group, dim, compute_dtype,
@@ -92,12 +109,17 @@ def make_fsdp_gather(qz: Quantizer, group=None, *, dim: int,
 def make_replicated_gather(qz: Quantizer, group=None, *,
                            compute_dtype=torch.bfloat16,
                            param_dtype=torch.float32,
-                           server_requant: bool = True):
+                           server_requant: bool = True,
+                           tp_axis: Optional["tp_mod.Axis"] = None,
+                           tp_dim: Optional[int] = None):
     """Identity "gather" of a dp-replicated leaf whose backward runs the
-    full Algorithm 2 all-reduce (fp: the all-reduce mean)."""
+    full Algorithm 2 all-reduce (fp: the all-reduce mean); with a TP block
+    (``tp_axis``, ``tp_dim``) on the whole leaf's cotangent, gathered over
+    the model axis."""
 
     def gather(w, key):
         return _ReplicatedGather.apply(w, key, qz, group, compute_dtype,
-                                       param_dtype, server_requant)
+                                       param_dtype, server_requant, tp_axis,
+                                       tp_dim)
 
     return gather

@@ -71,27 +71,32 @@ def split_dp_axes(dp_axes: Sequence[str], hierarchy: str
     return intra, inter
 
 
-def pod_groups(n_inter: int, n_intra: int, backend=None):
+def pod_groups(n_inter: int, n_intra: int, backend=None, n_model: int = 1):
     """(intra group, inter group) of this rank in a world of ``n_inter``
-    pods of ``n_intra`` workers, rank = pod * n_intra + data. Every rank
-    creates every group, in the same order (``dist.new_group`` is
-    collective); ``backend`` as ``dist.new_group`` takes it."""
-    if dist.get_world_size() != n_inter * n_intra:
+    pods of ``n_intra`` workers, rank = pod * n_intra + data; with a model
+    axis of ``n_model`` (``launch.mesh``) the worker of dp index ``w`` and
+    model index ``m`` is rank ``w * n_model + m``, and each model index has
+    its own pods. Every rank creates every group, in the same order
+    (``dist.new_group`` is collective); ``backend`` as ``dist.new_group``
+    takes it."""
+    if dist.get_world_size() != n_inter * n_intra * n_model:
         raise ValueError(f"{n_inter} pods of {n_intra} workers need a world "
-                         f"of {n_inter * n_intra}, got "
+                         f"of {n_inter * n_intra * n_model}, got "
                          f"{dist.get_world_size()}")
-    rank = dist.get_rank()
+    dp_rank, mine = divmod(dist.get_rank(), n_model)
     intra = inter = None
-    for p in range(n_inter):
-        g = dist.new_group([p * n_intra + d for d in range(n_intra)],
-                           backend=backend)
-        if rank // n_intra == p:
-            intra = g
-    for d in range(n_intra):
-        g = dist.new_group([p * n_intra + d for p in range(n_inter)],
-                           backend=backend)
-        if rank % n_intra == d:
-            inter = g
+    for m in range(n_model):
+        for p in range(n_inter):
+            g = dist.new_group([(p * n_intra + d) * n_model + m
+                                for d in range(n_intra)], backend=backend)
+            if m == mine and dp_rank // n_intra == p:
+                intra = g
+    for m in range(n_model):
+        for d in range(n_intra):
+            g = dist.new_group([(p * n_intra + d) * n_model + m
+                                for p in range(n_inter)], backend=backend)
+            if m == mine and dp_rank % n_intra == d:
+                inter = g
     return intra, inter
 
 

@@ -2,12 +2,14 @@
 decoding on one card. Two paths:
 
   dense (default)      the ring-buffer bf16 cache through
-                       ``LM.decode_step`` (the reference's
-                       ``make_serve_step``); the prompt prefills in chunks
-                       through ``LM.prefill_chunk`` (``--prefill-chunk N``,
-                       the reference's ``make_chunked_prefill_step``) or
-                       token by token through the decode step
-                       (``--prefill-chunk 0``, the reference loop).
+                       ``serve.step.make_serve_step`` on the host mesh
+                       (``launch.mesh.make_host_mesh()``, a world of one:
+                       ``LM.decode_step``); the prompt prefills in chunks
+                       through ``make_chunked_prefill_step``
+                       (``--prefill-chunk N``) or token by token through
+                       the decode step (``--prefill-chunk 0``, the
+                       reference loop). Sharded serving is reached through
+                       ``serve/step.py``, as the reference's is.
   paged (--kv-quant)   the continuous-batching engine over the paged
                        quantized KV cache (``--kv-quant orq-9`` etc.;
                        ``--kv-quant bf16`` is the unquantized escape
@@ -47,11 +49,14 @@ import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import LM
 from repro_torch.models.blocks import mamba_spec, rwkv_spec
 from repro_torch.models.model import map_tree
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.kv_cache import token_bytes_ratio
+from repro_torch.serve.step import (make_chunked_prefill_step,
+                                    make_serve_step, plan_serve_sharding)
 
 
 def _digest(toks: np.ndarray) -> str:
@@ -129,6 +134,13 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
             chunk = 0
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=device)
     forward_calls = 0
+    # the reference's launcher: the host mesh, its plan and steps
+    mesh = make_host_mesh()
+    plan = plan_serve_sharding(model, model.abstract_params(),
+                               model.abstract_cache(args.batch, args.max_len),
+                               mesh)
+    decode_step = make_serve_step(model, mesh, plan)
+    prefill_chunk = make_chunked_prefill_step(model, mesh, plan)
 
     def forward(fn, cache, tokens, pos):
         nonlocal forward_calls
@@ -141,10 +153,10 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
     warm = model.init_cache(args.batch, args.max_len, device=device)
     if enc is not None:
         model.warm_cache(params, warm, enc)
-    forward(model.decode_step, warm, prompt[:, :1], 0)
+    forward(decode_step, warm, prompt[:, :1], 0)
     if chunk:
         warm = model.init_cache(args.batch, args.max_len, device=device)
-        forward(model.prefill_chunk, warm,
+        forward(prefill_chunk, warm,
                 prompt[:, :min(chunk, args.prompt_len)], 0)
     del warm
     if device.type == "cuda":          # the warm-up ends before the clock
@@ -161,18 +173,18 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
     t0 = time.perf_counter()
     if chunk:
         for off in range(0, args.prompt_len, chunk):
-            logits, cache = forward(model.prefill_chunk, cache,
+            logits, cache = forward(prefill_chunk, cache,
                                     prompt[:, off:off + chunk], off)
     else:
         for i in range(args.prompt_len):
-            logits, cache = forward(model.decode_step, cache,
+            logits, cache = forward(decode_step, cache,
                                     prompt[:, i:i + 1], i)
     out = [torch.argmax(logits[:, -1], dim=-1).cpu()]   # waits for the card
     pre_s = time.perf_counter() - t0
     step_s = []
     for i in range(args.gen - 1):
         ts = time.perf_counter()
-        logits, cache = forward(model.decode_step, cache,
+        logits, cache = forward(decode_step, cache,
                                 out[-1][:, None].to(device),
                                 args.prompt_len + i)
         out.append(torch.argmax(logits[:, -1], dim=-1).cpu())

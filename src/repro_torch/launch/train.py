@@ -56,8 +56,19 @@ writes the full arrays (fsdp shards gathered in rank order, EF buffers
 stacked over the ranks, async params and optimizer state stacked over
 the ranks), and ``--resume`` slices them back.
 
-Model parallelism is not ported yet (ROADMAP.md); its flag exits with a
-message. An encoder-decoder arch (whisper-base) is refused by name: its
+``--model-parallel N`` lays the world out as the reference's host mesh
+(``launch/mesh.py``: rank = dp index * N + model index) and trains
+tensor-parallel over the model axis: each rank stores its TP blocks,
+model ranks of one dp index read the same rows of the batch, and the
+digest covers the params gathered over both axes. Two ranks cannot share
+a card on NCCL; ``train(argv, mesh=...)`` takes a mesh built with other
+backends (``make_host_mesh(model=2, dp_backend="nccl",
+model_backend="gloo")`` in a gloo world of two processes on one card).
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --model-parallel 2 --quant orq-9 [--mode fsdp]
+
+An encoder-decoder arch (whisper-base) is refused by name: its
 batch carries frame embeddings beside the tokens, which this launcher's
 token stream lacks (as the reference launcher's); it trains through
 ``make_train_step`` with ``{"tokens", "enc_embeds"}`` batches.
@@ -86,15 +97,15 @@ from repro_torch.core.policy import (BitBudgetController, BitSchedule,
                                      QuantPolicy)
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, mesh_shape
 from repro_torch.models import LM
+from repro_torch.models import tp as tp_mod
 from repro_torch.optim.schedule import step_decay
 from repro_torch.train import TrainConfig, init_state, make_train_step
 from repro_torch.train.step import (ScheduledTrainStep, StateSharding,
                                     check_async_axes, dp_world,
                                     specialize_engines)
 from repro_torch.utils.pytree import tree_leaves
-
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 def params_digest(params) -> str:
@@ -193,16 +204,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
-    # a reference flag whose path is not ported yet
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size of the host mesh (tensor "
+                         "parallelism over that many ranks)")
     return ap
 
 
 def _check_args(ap, args):
     """Refusals while parsing, before any process group or model exists,
     with the reference launcher's messages -> (schedule or None, tcfg)."""
-    if args.model_parallel != 1:
-        ap.error(f"--model-parallel {_NOT_PORTED}")
+    try:
+        mesh_shape(_world_size(), model=args.model_parallel, pods=args.pods)
+    except ValueError as e:
+        ap.error(str(e))
     if get_config(args.arch).encoder is not None:
         ap.error(f"--arch {args.arch}: an encoder-decoder model needs its "
                  f"frame embeddings in every batch, and this launcher's "
@@ -247,7 +261,17 @@ def _check_args(ap, args):
     return schedule, tcfg
 
 
-def _scheduled_step(model, tcfg, schedule, args, lr_fn):
+def _world_size() -> int:
+    """The size of the world the launcher runs in: the initialized group's,
+    torchrun's, else one."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
+def _scheduled_step(model, tcfg, schedule, args, lr_fn, mesh):
     """The ScheduledTrainStep of ``--bit-schedule``, its controller
     pricing an assignment with the per-link accounting of the engines as
     built (the reference launcher's cost_fn): the quantized DCN bytes a
@@ -255,8 +279,7 @@ def _scheduled_step(model, tcfg, schedule, args, lr_fn):
     controller = BitBudgetController(
         schedule, total_steps=args.steps, resolve_every=args.resolve_every,
         dcn_budget_bytes=args.bit_budget)
-    step_fn = ScheduledTrainStep(model, tcfg, controller, lr_fn,
-                                 pods=args.pods)
+    step_fn = ScheduledTrainStep(model, tcfg, controller, lr_fn, mesh=mesh)
     lay = step_fn.skeleton.layout
     n_intra = max(1, lay.n_intra)
     n_inter = max(1, lay.n_dp // n_intra)
@@ -298,11 +321,13 @@ def _init_world(device):
     return device, 0, 1, tmp
 
 
-def train(argv=None, on_step=None) -> dict:
+def train(argv=None, on_step=None, mesh=None) -> dict:
     """Run the launcher; returns the run's record (history, per-step
     seconds, digest, wire accounting, final state). ``on_step(i, state,
     metrics, step_fn)``, if given, runs on every rank after each step
-    (inspection from Python: digests, launch counts)."""
+    (inspection from Python: digests, launch counts). ``mesh`` (from
+    ``make_host_mesh`` in the caller's world) replaces the one
+    ``--model-parallel`` and ``--pods`` build."""
     ap = _parser()
     args = ap.parse_args(argv)
     schedule, tcfg = _check_args(ap, args)
@@ -311,18 +336,25 @@ def train(argv=None, on_step=None) -> dict:
     model = LM(cfg)
     device, rank, ws, created = _init_world(resolve_device(args.device))
     try:
-        if args.batch % ws:
-            ap.error(f"--batch {args.batch} does not split over {ws} "
+        if mesh is None:
+            try:
+                mesh = make_host_mesh(model=args.model_parallel,
+                                      pods=args.pods)
+            except ValueError as e:
+                ap.error(str(e))
+        n_dp, dp_rank = mesh.n_dp, mesh.dp_axis.index
+        if args.batch % n_dp:
+            ap.error(f"--batch {args.batch} does not split over {n_dp} "
                      f"workers")
         lr_fn = step_decay(args.lr, [args.steps // 2, 3 * args.steps // 4])
         controller = None
         try:
             if schedule is not None:
                 step_fn, controller = _scheduled_step(model, tcfg, schedule,
-                                                      args, lr_fn)
+                                                      args, lr_fn, mesh)
                 tcfg = step_fn.init_config
             else:
-                step_fn = make_train_step(model, tcfg, lr_fn, pods=args.pods)
+                step_fn = make_train_step(model, tcfg, lr_fn, mesh=mesh)
         except (ValueError, NotImplementedError) as e:
             ap.error(str(e))
         state = init_state(model, tcfg, seed=args.seed, device=device,
@@ -340,16 +372,20 @@ def train(argv=None, on_step=None) -> dict:
         data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                            batch_size=args.batch, seed=args.seed)
         key = prng.key(args.seed, device=device)
-        rows = slice(rank * args.batch // ws, (rank + 1) * args.batch // ws)
-        history, step_s = [], []
+        # model ranks of one dp index read the same rows
+        rows = slice(dp_rank * args.batch // n_dp,
+                     (dp_rank + 1) * args.batch // n_dp)
+        history, step_s, model_coll = [], [], []
         t0 = time.perf_counter()
         for i in range(start, args.steps):
             tokens = data.batch(i, device=device)["tokens"][rows]
             ts = time.perf_counter()
+            c0 = mesh.model_axis.collectives
             state, metrics = step_fn(state, {"tokens": tokens}, key)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_s.append(time.perf_counter() - ts)
+            model_coll.append(mesh.model_axis.collectives - c0)
             if on_step is not None:
                 on_step(i, state, metrics, step_fn)
             if args.state_checkpoint and args.checkpoint_at == i + 1:
@@ -373,19 +409,22 @@ def train(argv=None, on_step=None) -> dict:
         full_params = sharding.full_params(state.params)
         digest = params_digest(full_params)
         # every worker must end with the same (full) parameters
-        mine = torch.tensor(list(bytes.fromhex(digest)), device=device)
-        every = [torch.empty_like(mine) for _ in range(ws)]
-        dist.all_gather(every, mine)
+        mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.uint8,
+                            device=device)
+        every = tp_mod.gather_blocks(mesh.world_axis, [mine])[0]
         in_sync = all(torch.equal(d, mine) for d in every)
         if args.checkpoint:
             _save(rank, args.checkpoint, full_params, state.step)
         if args.state_checkpoint and args.checkpoint_at is None:
             _save(rank, args.state_checkpoint, sharding.gather(state),
                   state.step)
-        launches, wire_bytes = step_fn.launches_and_bytes(ws)
+        launches, wire_bytes = step_fn.launches_and_bytes(n_dp)
         out = {"history": history, "params_sha256": digest,
                "step_s": step_s, "world_size": ws, "rank": rank,
                "mode": args.mode, "pods": args.pods,
+               "model_parallel": mesh.n_model, "dp_size": n_dp,
+               "model_collectives_per_step": model_coll,
+               "backends": dict(mesh.backends),
                "two_level": step_fn.layout.two_level,
                "n_params": sum(p.numel() for p in tree_leaves(
                    model.abstract_params())),
@@ -404,6 +443,9 @@ def train(argv=None, on_step=None) -> dict:
         if rank == 0:
             print("params sha256", digest, flush=True)
             print(f"replicas in sync: {in_sync} ({ws} workers)", flush=True)
+            if mesh.n_model > 1:
+                print(f"mesh {dict(mesh.sizes)}: model-group collectives "
+                      f"per step {model_coll}", flush=True)
             print(f"collective launches per step {launches}, wire bytes "
                   f"per worker {wire_bytes:.0f}", flush=True)
             if args.metrics_out:

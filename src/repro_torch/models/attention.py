@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.layers import apply_rope, softcap
 
 NEG_INF = -2.0e38
@@ -168,3 +169,30 @@ def decode_attention(q, k_cache, v_cache, valid_mask, spec: AttnSpec):
     the same computation."""
     return masked_decode_attention(q, k_cache, v_cache,
                                    valid_mask[:, None, :], spec)
+
+
+def split_attention(q, k_cache, v_cache, mask, spec: AttnSpec,
+                    ax: "tp_mod.Axis"):
+    """:func:`masked_decode_attention` over a cache whose slots are split
+    over ``ax`` (flash-decoding; the reference's sequence-sharded cache,
+    whose combine XLA derives): q (B,T,H,hd) the same on every rank, this
+    rank's slots in k_cache / v_cache (B,C_loc,KV,hd) and mask (B,T,C_loc).
+    Each rank attends its slots to a partial (max, sum, PV) in float32;
+    the partials are gathered (one all-reduce) and combined, rescaled to
+    the largest max, in axis order. A rank whose slots are all masked
+    adds nothing."""
+    B, T, H, hd = q.shape
+    s = _chunk_scores(q, k_cache, spec)                 # (B,H,T,C_loc)
+    s = torch.where(mask[:, None], s, NEG_INF)
+    m = s.amax(dim=-1)                                  # (B,H,T)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.where(mask[:, None], torch.exp(s - m_safe[..., None]), 0.0)
+    o = _chunk_out(p, v_cache, B, H, T)                 # (B,T,H,hd) f32
+    ms, ls, os_ = tp_mod.gather_blocks(ax, [m, p.sum(dim=-1), o])
+    top = ms.amax(dim=0)
+    top = torch.where(top <= NEG_INF / 2, 0.0, top)
+    w = torch.where(ms <= NEG_INF / 2, 0.0, torch.exp(ms - top))  # (n,B,H,T)
+    den = (ls * w).sum(dim=0)                           # (B,H,T)
+    num = (os_ * w.permute(0, 1, 3, 2)[..., None]).sum(dim=0)
+    out = num / torch.clamp(den, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)

@@ -23,23 +23,37 @@ A Mamba or RWKV layer's cache is its recurrent state (``ssm.
 init_mamba_state``, ``rwkv.init_rwkv_state``): its decode returns new
 state tensors, which the caller writes back into the cache. These layers
 have no chunked prefill (a prompt prefills token by token), as in the
-reference."""
+reference.
+
+Under a model axis (``tp``, a :class:`~repro_torch.models.tp.LayerTP`)
+a GQA layer runs on the local blocks of its leaves: in training and the
+prefill forward its attention is head-parallel (this rank's query and KV
+heads, as the reference's ``shard`` puts heads over ``model``,
+``attention.py:182``, ``blocks.py:239``), its FFN or its experts split by
+the plan; in the cached decode (:func:`apply_layer_cached_tp`) the
+projections are gathered to every head and the attention is split over
+the cache's slots (:func:`~repro_torch.models.attention.split_attention`).
+Every other layer kind is refused there (:func:`check_tp_layer`)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.attention import (NEG_INF, AttnSpec,
                                          chunked_attention,
                                          decode_attention,
-                                         masked_decode_attention)
+                                         masked_decode_attention,
+                                         split_attention)
 from repro_torch.models.layers import (apply_rope, dense_init, dense_mlp,
-                                       gated_mlp, layer_norm, rms_norm)
-from repro_torch.models.moe import MoESpec, moe_ffn
+                                       gated_mlp, gated_mlp_tp, layer_norm,
+                                       rms_norm)
+from repro_torch.models.moe import MoESpec, moe_ffn, moe_ffn_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +114,27 @@ def check_ported_layer(cfg: ModelConfig, spec: LayerSpec) -> None:
             f"RMSNorm or layer norm only (kind={spec.kind!r}, "
             f"norm={cfg.norm!r}); other layers are not ported (see "
             f"ROADMAP.md)")
+
+
+def check_tp_layer(cfg: ModelConfig, spec: LayerSpec, n_model: int) -> None:
+    """Under a sharded mesh the port computes GQA attention layers (dense
+    or MoE FFN, RMSNorm) whose query and KV heads split evenly over the
+    model axis; MLA, Mamba, RWKV-6 and whisper's encoder and
+    cross-attention are refused (their sharding plans are ported)."""
+    check_ported_layer(cfg, spec)
+    what = None
+    if spec.kind in ("mamba", "rwkv"):
+        what = f"a {spec.kind} layer"
+    elif cfg.mla is not None:
+        what = "Multi-head Latent Attention"
+    elif cfg.encoder is not None or spec.cross_attn or not spec.causal:
+        what = "an encoder-decoder model (whisper)"
+    elif cfg.num_heads % n_model or cfg.num_kv_heads % n_model:
+        what = (f"attention whose {cfg.num_heads} query / "
+                f"{cfg.num_kv_heads} KV heads do not split over "
+                f"{n_model} model ranks (a block would cut a head)")
+    if what is not None:
+        tp_mod.refuse(what)
 
 
 def _norm_p(cfg: ModelConfig, D: int) -> dict:
@@ -367,6 +402,150 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x,
         h = h + o.reshape(B, S, -1) @ p["xattn"]["wo"]
     y, aux = _ffn_train(cfg, spec, p["ffn"], _apply_norm(cfg, p["norm2"], h))
     return h + y, aux
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel (under a model axis)
+# ---------------------------------------------------------------------------
+
+def _norm_tp(cfg: ModelConfig, tp: "tp_mod.LayerTP", p, name: str, x):
+    """RMSNorm by ``p[name]``'s scale, gathered on use when split."""
+    return rms_norm(x, tp_mod.full(tp.axis, p[name]["scale"],
+                                   tp.dims[name]["scale"]), cfg.norm_eps)
+
+
+def _heads_tp(ax, x, pa, da, w: str, b: str, n_heads: int, hd: int,
+              local: bool):
+    """One projection of ``_gqa_project`` on its leaf's block -> this
+    rank's heads (B, S, n_heads / n, hd) when ``local``, else every head
+    (replicated)."""
+    B, S = x.shape[:2]
+    y, split = tp_mod.linear(ax, x, pa[w], da[w])
+    if split and local:
+        if b in pa:
+            y = y + tp_mod.local_part(ax, pa[b], da[b], 0)
+        return y.reshape(B, S, n_heads // ax.n, hd)
+    y = tp_mod.to_full(ax, y, split)
+    if b in pa:
+        y = y + tp_mod.full(ax, pa[b], da[b])
+    if local:
+        y = tp_mod.own_block(ax, tp_mod.copy_to(ax, y), -1)
+        n_heads //= ax.n
+    return y.reshape(B, S, n_heads, hd)
+
+
+def _gqa_project_tp(cfg: ModelConfig, tp, pa, da, x, local: bool):
+    """q, k, v of a GQA layer under a model axis: this rank's heads
+    (``local``), or every head."""
+    ax, H, KV = tp.axis, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    q = _heads_tp(ax, x, pa, da, "wq", "bq", H, hd, local)
+    k = _heads_tp(ax, x, pa, da, "wk", "bk", KV, hd, local)
+    v = _heads_tp(ax, x, pa, da, "wv", "bv", KV, hd, local)
+    if cfg.qk_norm:
+        def scale(n):
+            s = tp_mod.full(ax, pa[n], da[n])
+            return tp_mod.copy_to(ax, s) if local else s
+        q = rms_norm(q, scale("q_norm"), cfg.norm_eps)
+        k = rms_norm(k, scale("k_norm"), cfg.norm_eps)
+    return q, k, v
+
+
+def _ffn_tp(cfg: ModelConfig, spec: LayerSpec, tp, p, x):
+    """:func:`_ffn_train` on the FFN's blocks -> (y replicated, aux)."""
+    ltp = tp_mod.LayerTP(tp.axis, tp.dims["ffn"])
+    if spec.moe:
+        bax = tp.batch
+        if bax is not None:          # route the whole batch (serving)
+            x = tp_mod.gather_dim(bax, x, 0)
+        B, S, D = x.shape
+        y, aux = moe_ffn_tp(ltp, p["ffn"], x.reshape(B * S, D),
+                            moe_spec(cfg))
+        y = y.reshape(B, S, D)
+        return (y if bax is None else tp_mod.own_block(bax, y, 0)), aux
+    return gated_mlp_tp(ltp, p["ffn"], x, act=cfg.mlp_act), 0.0
+
+
+def _out_tp(tp, pa, da, o, local: bool):
+    """The attention output projection of o (B, S, heads, hd), this
+    rank's heads (``local``) or every head -> replicated (B, S, D)."""
+    B, S = o.shape[:2]
+    y, split = tp_mod.linear(tp.axis, o.reshape(B, S, -1), pa["wo"],
+                             da["wo"], x_split=local)
+    return tp_mod.to_full(tp.axis, y, split)
+
+
+def apply_layer_train_tp(cfg: ModelConfig, spec: LayerSpec, p, x,
+                         tp: "tp_mod.LayerTP"):
+    """:func:`apply_layer_train` under a model axis: x (B, S, D)
+    replicated -> (x', aux), with head-parallel attention."""
+    check_tp_layer(cfg, spec, tp.axis.n)
+    pa, da = p["attn"], tp.dims["attn"]
+    q, k, v = _gqa_project_tp(cfg, tp, pa, da, _norm_tp(cfg, tp, p, "norm1",
+                                                         x), local=True)
+    n = tp.axis.n
+    asp = attn_spec(cfg, spec)._replace(num_heads=cfg.num_heads // n,
+                                        num_kv_heads=cfg.num_kv_heads // n)
+    h = x + _out_tp(tp, pa, da, chunked_attention(q, k, v, asp), True)
+    y, aux = _ffn_tp(cfg, spec, tp, p, _norm_tp(cfg, tp, p, "norm2", h))
+    return h + y, aux
+
+
+class CacheShard(NamedTuple):
+    """How a layer's cache is split in the sharded serve step: ``seq`` the
+    axis over which its slots are split (size 1: every slot here), ``pos``
+    the axis over which its slot-position table is split."""
+
+    seq: "tp_mod.Axis"
+    pos: "tp_mod.Axis"
+
+
+def apply_layer_cached_tp(cfg: ModelConfig, spec: LayerSpec, p, x,
+                          cache: dict, start: int, tp: "tp_mod.LayerTP",
+                          shard: CacheShard):
+    """The dense decode (T = 1) and chunked prefill of a GQA layer over a
+    sharded cache: x (B, T, D) at positions start..start+T-1, the cache
+    this rank's block of batch rows and slots. The new K/V go to ring
+    slot ``pos % C``, written by the rank whose block holds it; the
+    slot-position table is gathered where it is split (and its block
+    written back); the attention is split over the slots and combined
+    (:func:`split_attention`)."""
+    check_tp_layer(cfg, spec, tp.axis.n)
+    B, T = x.shape[:2]
+    asp = attn_spec(cfg, spec)
+    pa, da = p["attn"], tp.dims["attn"]
+    q, k, v = _gqa_project_tp(cfg, tp, pa, da, _norm_tp(cfg, tp, p, "norm1",
+                                                         x), local=False)
+    qpos = start + torch.arange(T, dtype=torch.int32, device=x.device)
+    posv = qpos[None].expand(B, T)
+    q = apply_rope(q, posv, asp.rope_theta)
+    k = apply_rope(k, posv, asp.rope_theta)
+    sq = shard.seq
+    C_loc = cache["k"].shape[1]
+    C, lo = C_loc * sq.n, sq.index * C_loc
+    slots = [(start + t) % C for t in range(T)]
+    pos_full = tp_mod.gather_dim(shard.pos, cache["pos"], 0)
+    pos_full[torch.tensor(slots, device=x.device)] = qpos
+    if shard.pos.n > 1:
+        cache["pos"].copy_(tp_mod.own_block(shard.pos, pos_full, 0))
+    mine = [t for t, s in enumerate(slots) if lo <= s < lo + C_loc]
+    if mine:
+        at = torch.tensor([slots[t] - lo for t in mine], device=x.device)
+        sel = torch.tensor(mine, device=x.device)
+        cache["k"][:, at] = k[:, sel].to(cache["k"].dtype)
+        cache["v"][:, at] = v[:, sel].to(cache["v"].dtype)
+    posa = pos_full[lo:lo + C_loc]
+    mask = ((posa >= 0)[None, None, :]
+            & (posa[None, None, :] <= posv[:, :, None]))     # (B, T, C_loc)
+    if spec.kind == "attn_local" and cfg.window:
+        mask &= (posv[:, :, None] - posa[None, None, :]) < cfg.window
+    if sq.n > 1:
+        o = split_attention(q, cache["k"], cache["v"], mask, asp, sq)
+    else:
+        o = masked_decode_attention(q, cache["k"], cache["v"], mask, asp)
+    h = x + _out_tp(tp, pa, da, o, False)
+    y, _ = _ffn_tp(cfg, spec, tp, p, _norm_tp(cfg, tp, p, "norm2", h))
+    return h + y, cache
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as tp_mod
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
              offset: float = 1.0) -> torch.Tensor:
@@ -106,6 +108,22 @@ def gated_mlp(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     u = x @ p["wi_up"]
     h = (_ACTS[act](g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
     return h @ p["wo"]
+
+
+def gated_mlp_tp(tp: "tp_mod.LayerTP", p, x: torch.Tensor, *,
+                 act: str = "silu") -> torch.Tensor:
+    """:func:`gated_mlp` on the local blocks of its leaves (the reference
+    shards the hidden columns over ``model``, ``layers.py:141,149``): each
+    projection by the dim its leaf is split on, the activation product on
+    whichever block both halves share, the output replicated."""
+    ax, d = tp.axis, tp.dims
+    g, gs = tp_mod.linear(ax, x, p["wi_gate"], d["wi_gate"])
+    u, us = tp_mod.linear(ax, x, p["wi_up"], d["wi_up"])
+    if gs != us:
+        g, u, gs = tp_mod.to_full(ax, g, gs), tp_mod.to_full(ax, u, us), False
+    h = (_ACTS[act](g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    y, ys = tp_mod.linear(ax, h, p["wo"], d["wo"], x_split=gs)
+    return tp_mod.to_full(ax, y, ys)
 
 
 def dense_mlp(p, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:

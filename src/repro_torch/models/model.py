@@ -21,6 +21,13 @@ backward is autograd through these plain ops (the reference's
 reference's ``cfg.remat`` (rematerialise each layer group in the
 backward) changes no value, and the port ignores it: at the ported
 sizes the activations fit.
+
+Under a sharded mesh the forward, the loss and the cached decode take a
+``tp`` (:class:`~repro_torch.models.tp.ModelTP`): the params are this
+rank's blocks by the plan, the embedding, the head and every layer run
+on them (``blocks.apply_layer_train_tp`` / ``apply_layer_cached_tp``),
+and the logits are gathered over V before the loss or the caller sees
+them.
 """
 from __future__ import annotations
 
@@ -32,11 +39,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.blocks import (LayerSpec, _gqa_kv,
+                                      apply_layer_cached_tp,
                                       apply_layer_decode,
                                       apply_layer_prefill_chunk,
-                                      apply_layer_train, init_layer,
-                                      init_layer_cache)
+                                      apply_layer_train,
+                                      apply_layer_train_tp, check_tp_layer,
+                                      init_layer, init_layer_cache)
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        rms_norm, softcap)
 
@@ -225,11 +235,38 @@ class LM:
             return self._gather_leaf("embed", params["embed"], 0, gather).T
         return self._gather_leaf("lm_head", params["lm_head"], 0, gather)
 
+    def _head_dim(self, tp) -> Optional[int]:
+        """The TP dim of the (D, V) head: the tied embedding's transposed."""
+        if self.cfg.tie_embeddings:
+            d = tp.dims.get("embed")
+            return None if d is None else 1 - d
+        return tp.dims.get("lm_head")
+
+    def _project(self, x, head, tp=None) -> torch.Tensor:
+        """x @ head -> f32 logits over the whole vocabulary."""
+        if tp is None:
+            return (x @ head).to(torch.float32)
+        lg, split = tp_mod.linear(tp.axis, x, head, self._head_dim(tp))
+        return tp_mod.to_full(tp.axis, lg, split).to(torch.float32)
+
+    def _layer_tp(self, tp, prefix: str, unit) -> "tp_mod.LayerTP":
+        """A layer's :class:`~repro_torch.models.tp.LayerTP` from the
+        plan's dims under the paths ``prefix + keystr``."""
+        return tp_mod.LayerTP(tp.axis, _map_with(
+            lambda p, t: tp.dims.get(p), _named(prefix, unit), unit),
+            tp.batch)
+
+    def check_tp(self, n_model: int) -> None:
+        """Refuse, before any compute, a model with a layer the sharded
+        paths do not compute (ROADMAP.md)."""
+        for spec in self.specs:
+            check_tp_layer(self.cfg, spec, n_model)
+
     # ------------------------------------------------------------------
     # training forward
     # ------------------------------------------------------------------
     def _run_groups(self, cfg, groups, group_params, x, gather,
-                    prefix="", enc_out=None):
+                    prefix="", enc_out=None, tp=None):
         """Each group's stacked layers in order -> (x, aux). A layer leaf
         is gathered one repeat's slice at a time, the repeat index as its
         salt, under ``prefix + "g{gi}/pos{j}" + keystr``."""
@@ -245,8 +282,13 @@ class LM:
                             lambda p, t: self._gather_leaf(p, t[r], r,
                                                            gather),
                             _named(f"{prefix}g{gi}/pos{j}", unit), unit)
-                    x, a = apply_layer_train(cfg, spec, pj, x,
-                                             enc_out=enc_out)
+                    if tp is None:
+                        x, a = apply_layer_train(cfg, spec, pj, x,
+                                                 enc_out=enc_out)
+                    else:
+                        x, a = apply_layer_train_tp(
+                            cfg, spec, pj, x, self._layer_tp(
+                                tp, f"{prefix}g{gi}/pos{j}", unit))
                     aux = aux + a
         return x, aux
 
@@ -265,7 +307,7 @@ class LM:
         return self._final_norm(ep["final_norm"], x)
 
     def hidden_states(self, params, tokens: torch.Tensor, gather=None,
-                      enc_embeds=None):
+                      enc_embeds=None, *, tp=None):
         """tokens (B, S) [and, with an encoder, ``enc_embeds`` (B, frames,
         D)] -> (final-normed hidden states (B, S, D) bf16, aux loss).
         Each group's stacked layers run in order.
@@ -275,23 +317,30 @@ class LM:
         its point of use: ``embed`` and each ``final_norm`` leaf whole
         with salt 0, a stacked layer leaf one repeat's slice at a time
         with the repeat index as its salt, under the paths of
-        :meth:`param_paths`."""
+        :meth:`param_paths`. ``tp``: this rank's blocks under a model
+        axis."""
         cfg = self.cfg
-        x = self._embed(params, tokens, gather)
+        if tp is not None:
+            self.check_tp(tp.axis.n)
+        x = self._embed(params, tokens, gather, tp)
         enc_out = (self.encode(params, enc_embeds, gather) if cfg.encoder
                    else None)
         x, aux = self._run_groups(cfg, self.groups, params["groups"], x,
-                                  gather, enc_out=enc_out)
+                                  gather, enc_out=enc_out, tp=tp)
         fp = self._gather_tree(params["final_norm"], gather, "final_norm", 0)
+        if tp is not None:
+            fp = tp_mod.full(tp.axis, fp, tp.dims.get("final_norm"))
         return self._final_norm(fp, x), aux
 
     def logits(self, params, tokens: torch.Tensor, gather=None,
-               enc_embeds=None):
-        x, aux = self.hidden_states(params, tokens, gather, enc_embeds)
-        lg = (x @ self._head(params, gather)).to(torch.float32)
+               enc_embeds=None, *, tp=None):
+        x, aux = self.hidden_states(params, tokens, gather, enc_embeds,
+                                    tp=tp)
+        lg = self._project(x, self._head(params, gather), tp)
         return softcap(lg, self.cfg.final_softcap), aux
 
-    def loss(self, params, batch, gather=None, *, loss_chunk: int = 512):
+    def loss(self, params, batch, gather=None, *, loss_chunk: int = 512,
+             tp=None):
         """batch: {tokens (B, S) [, enc_embeds (B, frames, D)]}. Next-token
         cross entropy, computed in sequence chunks so (B, S, V) logits
         never exist at once. Returns (loss, {"nll", "aux", "tokens"}) like
@@ -299,15 +348,15 @@ class LM:
         too, salt 0)."""
         tokens = batch["tokens"].long()
         x, aux = self.hidden_states(params, tokens, gather,
-                                    batch.get("enc_embeds"))
+                                    batch.get("enc_embeds"), tp=tp)
         head = self._head(params, gather)
         inputs, targets = x[:, :-1], tokens[:, 1:]
         T = inputs.shape[1]
         ck = min(loss_chunk, T)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, T, ck):
-            lg = (inputs[:, c0:c0 + ck] @ head).to(torch.float32)
-            lg = softcap(lg, self.cfg.final_softcap)
+            lg = softcap(self._project(inputs[:, c0:c0 + ck], head, tp),
+                         self.cfg.final_softcap)
             tc = targets[:, c0:c0 + ck]
             tgt = torch.gather(lg, -1, tc[..., None])[..., 0]
             tot = tot + (torch.logsumexp(lg, dim=-1) - tgt).sum()
@@ -323,7 +372,16 @@ class LM:
         """Empty caches, one dict per group with each unit position's
         layer caches stacked on a leading ``(repeats, ...)`` axis, as the
         reference lays them out; on the card unless ``device="cpu"``."""
-        device = resolve_device(device)
+        return self._build_cache(batch, max_len, dtype,
+                                 resolve_device(device))
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype=torch.bfloat16) -> tuple:
+        """:meth:`init_cache`'s tree of ``meta`` tensors: the shapes, no
+        memory (the serving plan at full size)."""
+        return self._build_cache(batch, max_len, dtype, torch.device("meta"))
+
+    def _build_cache(self, batch, max_len, dtype, device) -> tuple:
         frames = self.cfg.encoder.num_frames if self.cfg.encoder else 0
         caches = []
         for g in self.groups:
@@ -337,29 +395,47 @@ class LM:
         return tuple(caches)
 
     def _embed(self, params, tokens: torch.Tensor,
-               gather=None) -> torch.Tensor:
-        x = self._gather_leaf("embed", params["embed"], 0, gather)[
-            tokens.long()]
+               gather=None, tp=None) -> torch.Tensor:
+        w = self._gather_leaf("embed", params["embed"], 0, gather)
+        if tp is None:
+            x = w[tokens.long()]
+        else:
+            x = tp_mod.embed(tp.axis, w, tp.dims.get("embed"), tokens.long())
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
-    def _run_cached(self, params, cache, x, layer_fn):
+    def _run_cached(self, params, cache, x, layer_fn, tp=None, start=0):
         """Every layer in order, each with its view of ``cache``, then the
         final norm and the head -> f32 logits. An attention layer writes
         its view in place; the new state tensors a Mamba or RWKV layer
-        returns are copied into it."""
-        for g, gp, gc in zip(self.groups, params["groups"], cache):
+        returns are copied into it. With ``tp`` every layer runs
+        ``apply_layer_cached_tp`` at absolute position ``start`` over its
+        blocks of params and cache."""
+        if tp is not None:
+            self.check_tp(tp.axis.n)
+        for gi, (g, gp, gc) in enumerate(zip(self.groups, params["groups"],
+                                             cache)):
             for r in range(g.repeats):          # the reference's scan
                 for j, spec in enumerate(g.unit):
-                    pj = map_tree(lambda t: self._cast(t[r]), gp[f"pos{j}"])
+                    unit = gp[f"pos{j}"]
+                    pj = map_tree(lambda t: self._cast(t[r]), unit)
                     cj = {k: t[r] for k, t in gc[f"pos{j}"].items()}
-                    x, new = layer_fn(spec, pj, x, cj)
+                    if tp is None:
+                        x, new = layer_fn(spec, pj, x, cj)
+                    else:
+                        x, new = apply_layer_cached_tp(
+                            self.cfg, spec, pj, x, cj, start,
+                            self._layer_tp(tp, f"g{gi}/pos{j}", unit),
+                            tp.cache[gi][f"pos{j}"])
                     for k, t in new.items():
                         if t is not cj[k]:
                             cj[k].copy_(t)
-        x = self._final_norm(self._cast_tree(params["final_norm"]), x)
-        lg = (x @ self._head(params).to(x.dtype)).to(torch.float32)
+        fp = self._cast_tree(params["final_norm"])
+        if tp is not None:
+            fp = tp_mod.full(tp.axis, fp, tp.dims.get("final_norm"))
+        x = self._final_norm(fp, x)
+        lg = self._project(x, self._head(params).to(x.dtype), tp)
         return softcap(lg, self.cfg.final_softcap)
 
     @torch.no_grad()
@@ -386,13 +462,16 @@ class LM:
         return cache
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
+    def decode_step(self, params, cache, tokens: torch.Tensor, pos: int, *,
+                    tp=None):
         """tokens (B, 1) at absolute position ``pos`` -> (logits (B, 1, V)
-        f32, cache updated in place)."""
+        f32, cache updated in place). ``tp``: this rank's blocks of params
+        and cache in the sharded serve step (``serve/step.py``)."""
         lg = self._run_cached(
-            params, cache, self._embed(params, tokens),
+            params, cache, self._embed(params, tokens, tp=tp),
             lambda spec, p, x, c: apply_layer_decode(self.cfg, spec, p, x, c,
-                                                     int(pos)))
+                                                     int(pos)),
+            tp, int(pos))
         return lg, cache
 
     def supports_chunked_prefill(self) -> bool:
@@ -405,15 +484,16 @@ class LM:
 
     @torch.no_grad()
     def prefill_chunk(self, params, cache, tokens: torch.Tensor,
-                      start: int):
+                      start: int, *, tp=None):
         """tokens (B, T) at absolute positions start..start+T-1 ->
         (logits (B, T, V) f32, cache updated in place): one forward over
         the chunk instead of T decode steps. The caller guarantees that
         start + T fits every layer's cache (no ring wrap)."""
         lg = self._run_cached(
-            params, cache, self._embed(params, tokens),
+            params, cache, self._embed(params, tokens, tp=tp),
             lambda spec, p, x, c: apply_layer_prefill_chunk(
-                self.cfg, spec, p, x, c, int(start)))
+                self.cfg, spec, p, x, c, int(start)),
+            tp, int(start))
         return lg, cache
 
     def prefill(self, params, cache, tokens: torch.Tensor, enc_embeds=None):

@@ -54,7 +54,20 @@ average the gradient within the pod only, then a sync step exchanges the
 window's parameter delta across pods (quantized, EF on it) into an outer
 SGD-momentum / Nesterov step. It needs a pod axis: ``pods > 1``, or
 ``pod_axis=True`` for a world of one pod (the reference's mesh
-``("pod",)``). Model parallelism is not ported (ROADMAP.md).
+``("pod",)``).
+
+Under a model axis (``make_train_step(..., mesh=make_host_mesh(model=N))``)
+every rank stores its (dp, tp) block of each leaf by the plan
+(:func:`plan_sharding_shapes`) and computes the forward and backward on
+its blocks (``models/tp.py``). In replicated mode the TP blocks of the
+gradient are gathered over the model group (one all-reduce) and the
+unchanged fused exchange runs on the full gradient over the dp group,
+identically on every model rank, as the reference's exchange replicates
+TP-sharded cotangents over ``model``; each rank keeps its block of the
+mean. fsdp mode takes the per-leaf gathers (``_fused_fsdp_active``): each
+rank's TP block of a cotangent is reduce-scattered over its dp group,
+keyed by its dp index alone. The bit schedule and two_level_async refuse
+a model axis (ROADMAP.md).
 
 :class:`ScheduledTrainStep` drives a ``BitSchedule`` /
 ``BitBudgetController`` (``core/policy.py``) over the same machinery: one
@@ -91,6 +104,7 @@ from repro_torch.core.comm.gather import (make_fsdp_gather,
                                           make_replicated_gather)
 from repro_torch.core.floats import fma_f32
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.model import LM
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.optim.schedule import constant_lr
@@ -203,6 +217,7 @@ class ShardingPlan:
     dp_axes: Tuple[str, ...]
     n_dp: int
     n_model: int
+    axis_sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def full_shard_dims(self) -> Dict[str, Optional[int]]:
         """path -> dp-shard dim in FULL leaf coordinates (the stacked
@@ -212,17 +227,65 @@ class ShardingPlan:
         return {p: spec_dp_dim(s, self.dp_axes)
                 for p, s in self.specs.items()}
 
+    def full_tp_dims(self) -> Dict[str, Optional[int]]:
+        """path -> TP dim in FULL leaf coordinates (None: not split)."""
+        return {p: next((i for i, e in enumerate(s) if e == "model"), None)
+                for p, s in self.specs.items()}
+
+
+class ModelShards:
+    """This rank's TP blocks of params-shaped trees under a model axis:
+    ``block`` slices a full tree, ``full`` gathers the blocks back (one
+    all-reduce over the model group); ``model_tp`` is what the model's
+    forward reads."""
+
+    def __init__(self, axis: "tp_mod.Axis", plan: ShardingPlan):
+        self.axis, self.plan = axis, plan
+        full = plan.full_tp_dims()
+        self.dims = [full[p] for p in tree_leaves(plan.paths)]
+        self.model_tp = tp_mod.ModelTP(axis, dict(plan.tp_dims))
+
+    def block(self, tree):
+        return tree_unflatten(tree, [
+            x if d is None else tp_mod.own_block(self.axis, x, d).clone()
+            for x, d in zip(tree_leaves(tree), self.dims)])
+
+    def full(self, tree, *more):
+        """The full trees of ``tree`` (and of ``more``, None passing
+        through), gathered in one all-reduce; a tuple when more than one
+        is given."""
+        trees = (tree,) + more
+        leaves, dims = [], []
+        for t in trees:
+            if t is not None:
+                leaves += tree_leaves(t)
+                dims += self.dims
+        it = iter(tp_mod.gather_leaves(self.axis, leaves, dims))
+        out = tuple(None if t is None else tree_unflatten(
+            t, [next(it) for _ in self.dims]) for t in trees)
+        return out if more else out[0]
+
+    def block_shapes(self, aparams):
+        """The tree of ``meta`` tensors of this rank's block shapes."""
+        def shape(x, d):
+            s = list(x.shape)
+            if d is not None:
+                s[d] //= self.axis.n
+            return torch.empty(s, dtype=x.dtype, device="meta")
+        return tree_unflatten(aparams, [shape(x, d) for x, d in zip(
+            tree_leaves(aparams), self.dims)])
+
 
 def plan_sharding_shapes(model: LM, aparams, *, dp_axes: Tuple[str, ...],
                          axis_sizes: Dict[str, int]) -> ShardingPlan:
-    """The fsdp dim of every leaf from the parameter shapes and the dp axis
-    sizes: a d_model-sized dim of the per-repeat slice first, else the
-    largest divisible one, else None (replicated). Tensor parallelism is
-    not ported, so there are no TP dims."""
+    """The fsdp and TP dims of every leaf from the parameter shapes and the
+    axis sizes (the reference's ``train/step.py:321-365``). The fsdp dim
+    of the per-repeat slice: a d_model-sized dim first, else the largest
+    divisible one, else None (dp-replicated). The TP dim over ``model``,
+    among the other dims divisible by its size: the experts dim first,
+    else the largest (the first of equal sizes), else None."""
     n_dp = math.prod(axis_sizes[a] for a in dp_axes) if dp_axes else 1
     n_model = axis_sizes.get("model", 1)
-    if n_model > 1:
-        raise NotImplementedError(f"model parallelism {_NOT_PORTED}")
     paths = model.param_paths(aparams)
     gather_dims: Dict[str, Optional[int]] = {}
     tp_dims: Dict[str, Optional[int]] = {}
@@ -230,21 +293,38 @@ def plan_sharding_shapes(model: LM, aparams, *, dp_axes: Tuple[str, ...],
     def leaf_spec(path: str, leaf):
         shape = tuple(leaf.shape)
         off = 1 if (path.startswith("g") or path.startswith("enc/g")) else 0
-        fdim = (choose_fsdp_dim(shape[off:], n_dp,
-                                prefer_sizes=(model.cfg.d_model,))
+        sl = shape[off:]
+        fdim = (choose_fsdp_dim(sl, n_dp, prefer_sizes=(model.cfg.d_model,))
                 if dp_axes else None)
         gather_dims[path] = fdim
-        tp_dims[path] = None
+        cand = [i for i, s in enumerate(sl)
+                if i != fdim and s % n_model == 0 and s >= n_model]
+        tdim = None
+        if cand and n_model > 1:
+            n_exp = model.cfg.moe.num_experts if model.cfg.moe else -1
+            pref = [i for i in cand if sl[i] == n_exp]
+            tdim = pref[0] if pref else max(cand, key=lambda i: sl[i])
+        tp_dims[path] = tdim
         ent = [None] * len(shape)
         if fdim is not None:
             ent[off + fdim] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+        if tdim is not None:
+            ent[off + tdim] = "model"
         return tuple(ent)
 
     specs = {p: leaf_spec(p, x)
              for p, x in zip(tree_leaves(paths), tree_leaves(aparams))}
     return ShardingPlan(specs=specs, paths=paths, gather_dims=gather_dims,
                         tp_dims=tp_dims, dp_axes=tuple(dp_axes), n_dp=n_dp,
-                        n_model=n_model)
+                        n_model=n_model, axis_sizes=dict(axis_sizes))
+
+
+def plan_sharding(model: LM, aparams, mesh) -> ShardingPlan:
+    """:func:`plan_sharding_shapes` on a mesh's axes (a ``launch.mesh``
+    ``HostMesh`` or ``MeshShape``)."""
+    return plan_sharding_shapes(
+        model, aparams, dp_axes=dp_axis_names(mesh.axis_names),
+        axis_sizes=dict(zip(mesh.axis_names, mesh.shape)))
 
 
 def dp_world(n_workers: int, pods: int = 1, pod_axis: bool = False
@@ -319,12 +399,13 @@ def _exchange_axes(tcfg: TrainConfig, dp_axes: Tuple[str, ...],
         why = "fused_exchange=False (per-leaf replicated exchange)"
     else:
         fused_ok = plan is not None and _fused_fsdp_active(tcfg, plan)
-        why = "the per-leaf fsdp gather path (fused_exchange=False)"
+        why = "the per-leaf fsdp gather path (fused_exchange=False or " \
+              "model parallelism active)"
     if not fused_ok:
         if tcfg.hierarchy == "two_level":
             warnings.warn(
                 f"hierarchy='two_level' needs the fused exchange but {why} "
-                f"is selected: falling back to the flat combined-axis "
+                f"is selected — falling back to the flat combined-axis "
                 f"exchange", stacklevel=2)
         return flat
     n_intra = math.prod(axis_sizes[a] for a in intra)
@@ -358,9 +439,10 @@ class StepLayout(NamedTuple):
 
 
 def step_layout(model: LM, tcfg: TrainConfig, n_workers: Optional[int], *,
-                pods: int = 1, pod_axis: bool = False) -> StepLayout:
+                pods: int = 1, pod_axis: bool = False,
+                n_model: int = 1) -> StepLayout:
     """The layout of a dp world of ``n_workers`` (None: the single-device
-    step, no dp axes)."""
+    step, no dp axes), with a model axis of ``n_model``."""
     aparams = model.abstract_params()
     if n_workers is None:
         if tcfg.mode == "fsdp":
@@ -369,6 +451,8 @@ def step_layout(model: LM, tcfg: TrainConfig, n_workers: Optional[int], *,
         dp_axes, sizes = (), {}
     else:
         dp_axes, sizes = dp_world(n_workers, pods, pod_axis)
+    if n_model > 1:
+        sizes = {**sizes, "model": n_model}
     plan = plan_sharding_shapes(model, aparams, dp_axes=dp_axes,
                                 axis_sizes=sizes)
     intra, _, n_intra = _exchange_axes(tcfg, dp_axes, sizes, plan)
@@ -429,11 +513,14 @@ def init_state(model: LM, tcfg: TrainConfig, *, seed: int = 0, device=None,
     two_level_async modes. In two_level_async mode the state also holds
     the outer anchor (the params) and a zero outer momentum. Those modes
     need ``step``; without it the state is the flat replicated (or
-    single-device) one."""
+    single-device) one. Under a model axis every rank keeps its TP blocks
+    (``step.tp``), then its dp shards of them."""
     if step is None and (tcfg.mode == "fsdp" or tcfg.local_steps > 1):
         raise ValueError("an fsdp or two_level_async state is laid out by "
                          "its step: pass step=make_train_step(...)")
     params = model.init(torch.Generator().manual_seed(seed), device=device)
+    if step is not None and step.tp is not None:
+        params = step.tp.block(params)
     if step is not None and step.shards is not None:
         params = tree_unflatten(params, step.shards.shard_leaves(
             tree_leaves(params), world(step.group)[1]))
@@ -480,7 +567,10 @@ class StateSharding:
     residuals. With one worker it is the reference's array; with L > 1
     each leaf is stacked over the ranks on a new leading axis, so a resume
     restores every worker's residuals (the reference's replicated array
-    keeps only one worker's copy in a checkpoint)."""
+    keeps only one worker's copy in a checkpoint).
+
+    Under a model axis the TP blocks are gathered over the model group
+    first (and sliced last), so a checkpoint holds the global arrays."""
 
     def __init__(self, step):
         """``step`` from :func:`make_train_step` (its group and shards)."""
@@ -489,18 +579,21 @@ class StateSharding:
         self.layout = step.shards          # None: replicated params
         self.fsdp = self.layout is not None
         self.stacked = step.layout.is_async
+        self.tp = step.tp                  # None: no model axis
 
     def full_params(self, params):
         if self.stacked:
             return tree_map(self._stack_leaf, params)
-        if not self.fsdp:
-            return params
-        return tree_unflatten(params, self.layout.unshard_leaves(
-            tree_leaves(params), self.group))
+        if self.fsdp:
+            params = tree_unflatten(params, self.layout.unshard_leaves(
+                tree_leaves(params), self.group))
+        return params if self.tp is None else self.tp.full(params)
 
     def _shard_params(self, params):
         if self.stacked:
             return tree_map(lambda t: t[self.rank].clone(), params)
+        if self.tp is not None:
+            params = self.tp.block(params)
         if not self.fsdp:
             return params
         return tree_unflatten(params, self.layout.shard_leaves(
@@ -510,8 +603,11 @@ class StateSharding:
         ef = state.ef
         if isinstance(ef, tuple):
             ef = tuple(None if e is None else self._stack(e) for e in ef)
-        elif ef is not None and self.n > 1:
-            ef = tree_map(self._stack_leaf, ef)
+        elif ef is not None:
+            if self.tp is not None:
+                ef = self.tp.full(ef)
+            if self.n > 1:
+                ef = tree_map(self._stack_leaf, ef)
         opt = _map_opt(self.full_params, state.opt)
         if self.stacked and isinstance(opt, opt_lib.AdamState):
             opt = opt._replace(count=torch.full(
@@ -525,8 +621,11 @@ class StateSharding:
             ef = tuple(None if e is None
                        else e.reshape(self.n, -1)[self.rank].clone()
                        for e in ef)
-        elif ef is not None and self.n > 1:
-            ef = tree_map(lambda e: e[self.rank].clone(), ef)
+        elif ef is not None:
+            if self.n > 1:
+                ef = tree_map(lambda e: e[self.rank].clone(), ef)
+            if self.tp is not None:
+                ef = self.tp.block(ef)
         opt = _map_opt(self._shard_params, full.opt)
         if self.stacked and isinstance(opt, opt_lib.AdamState):
             opt = opt._replace(count=int(opt.count[self.rank]))
@@ -581,21 +680,33 @@ class ExchangeEngines(NamedTuple):
 
 def exchange_engines(model: LM, tcfg: TrainConfig, *, group=None,
                      data_parallel: bool = True, pods: int = 1,
-                     pod_axis: bool = False) -> ExchangeEngines:
+                     pod_axis: bool = False, mesh=None) -> ExchangeEngines:
     """Build the engines as :func:`make_train_step` runs them (the same
     policy, hierarchy split and chunking); a two-level layout creates the
-    pods' process groups here (every rank calls this)."""
-    if not data_parallel and group is not None:
+    pods' process groups here (every rank calls this). ``mesh`` (a
+    ``launch.mesh.HostMesh``) gives the dp group, the pods and the model
+    axis instead of ``group`` / ``pods``."""
+    if not data_parallel and (group is not None or mesh is not None):
         raise ValueError("a single-device step takes no process group")
+    n_model = 1
+    if mesh is not None:
+        if group is not None or pods != 1:
+            raise ValueError("a mesh gives the dp group and the pods: pass "
+                             "neither group nor pods with it")
+        group, pods, n_model = mesh.dp_group, mesh.pods, mesh.n_model
     lay = step_layout(model, tcfg, world(group)[0] if data_parallel
-                      else None, pods=pods, pod_axis=pod_axis)
+                      else None, pods=pods, pod_axis=pod_axis,
+                      n_model=n_model)
     intra_group = inter_group = None
     if lay.two_level:
-        if group is not None:
+        if mesh is not None:
+            intra_group, inter_group = mesh.pod_groups(lay.n_intra)
+        elif group is not None:
             raise ValueError("the two-level hierarchy splits the default "
                              "process group into pods: pass group=None")
-        intra_group, inter_group = hierarchical.pod_groups(
-            lay.n_dp // lay.n_intra, lay.n_intra)
+        else:
+            intra_group, inter_group = hierarchical.pod_groups(
+                lay.n_dp // lay.n_intra, lay.n_intra)
     policy = tcfg.resolved_policy()
     pex = PartitionedExchange.build(
         policy, lay.aparams, inter_group if lay.two_level else group,
@@ -626,12 +737,15 @@ def specialize_engines(eng: ExchangeEngines,
         fex=eng.fex.specialize(policy) if eng.fex is not None else None)
 
 
-def per_leaf_fsdp_stats(model: LM, tcfg: TrainConfig, lay: StepLayout
-                        ) -> Tuple[int, float]:
+def per_leaf_fsdp_stats(model: LM, tcfg: TrainConfig, lay: StepLayout,
+                        n_model: int = 1) -> Tuple[int, float]:
     """(collective launches, wire bytes per worker) of one per-leaf fsdp
     step: each gather call (a stacked leaf once per repeat, a tied
     embedding twice) pays its leaf slice's reduce-scatter (sharded) or
-    Algorithm 2 all-reduce (replicated), under its resolved quantizer."""
+    Algorithm 2 all-reduce (replicated), under its resolved quantizer.
+    Under a model axis a sharded leaf exchanges its TP block (the whole
+    leaf's cotangent is gathered for a replicated one)."""
+    tp_full = lay.plan.full_tp_dims()
     policy = tcfg.resolved_policy()
     L = lay.n_dp
     launches, total = 0, 0.0
@@ -645,6 +759,8 @@ def per_leaf_fsdp_stats(model: LM, tcfg: TrainConfig, lay: StepLayout
         cfg = policy.resolve(path)
         qz = cfg.to_quantizer()
         if lay.plan.gather_dims.get(path) is not None:
+            if tp_full.get(path) is not None:
+                n //= n_model
             count, b = GradientExchange.rs_stats(qz, n, L)
         else:
             eng = GradientExchange(qz, server_requant=cfg.server_requant)
@@ -663,7 +779,7 @@ def make_train_step(model: LM, tcfg: TrainConfig,
                     lr_fn: Optional[Callable[[int], float]] = None, *,
                     group=None, data_parallel: bool = True, pods: int = 1,
                     pod_axis: bool = False,
-                    engines: Optional[ExchangeEngines] = None):
+                    engines: Optional[ExchangeEngines] = None, mesh=None):
     """Returns ``step_fn(state, batch, key) -> (state, metrics)``.
 
     ``data_parallel=True`` exchanges over the process group ``group``
@@ -688,11 +804,16 @@ def make_train_step(model: LM, tcfg: TrainConfig,
     (0 and 0.0 on a single device; both links in two-level mode, split by
     ``step_fn.link_bytes()``). With two_level_async and ``local_steps >
     1`` the step is an :class:`AsyncTrainStep`, priced per step over its
-    window."""
+    window.
+
+    ``mesh`` (``launch.mesh.make_host_mesh``) replaces ``group`` and
+    ``pods``: the exchange runs over its dp group, and with a model axis
+    the params are this rank's TP blocks (``step_fn.tp``, a
+    :class:`ModelShards`; None without one)."""
     lr_fn = lr_fn or constant_lr(0.1)
     eng = engines if engines is not None else exchange_engines(
         model, tcfg, group=group, data_parallel=data_parallel, pods=pods,
-        pod_axis=pod_axis)
+        pod_axis=pod_axis, mesh=mesh)
     if engines is not None:
         tcfg = dataclasses.replace(tcfg, policy=eng.policy)
     lay, group, data_parallel = eng.layout, eng.group, eng.data_parallel
@@ -706,6 +827,12 @@ def make_train_step(model: LM, tcfg: TrainConfig,
             "per-group wire buffers to measure on the per-leaf paths) — "
             "ignoring collect_stats", stacklevel=2)
         collect_stats = False
+    tp = None
+    if mesh is not None and mesh.n_model > 1:
+        if lay.is_async:
+            tp_mod.refuse("hierarchy='two_level_async' (AsyncTrainStep)")
+        model.check_tp(mesh.n_model)
+        tp = ModelShards(mesh.model_axis, lay.plan)
     if lay.is_async:
         return _make_async_train_step(model, tcfg, lr_fn, optimizer, eng,
                                       collect_stats)
@@ -714,9 +841,9 @@ def make_train_step(model: LM, tcfg: TrainConfig,
     if tcfg.mode == "fsdp":
         if tcfg.error_feedback and not fused:
             warnings.warn(
-                "error_feedback needs the fused fsdp exchange "
-                "(fused_exchange=True); the per-leaf fsdp path has no "
-                "residual stream: ignoring error_feedback", stacklevel=2)
+                "error_feedback needs the fused fsdp exchange (fused_exchange="
+                "True on a pure-dp mesh); the per-leaf fsdp path has no "
+                "residual stream — ignoring error_feedback", stacklevel=2)
         if fused:
             ex = eng.fex
             schedule = _fsdp_fused(model, tcfg, ex, collect_stats)
@@ -727,17 +854,18 @@ def make_train_step(model: LM, tcfg: TrainConfig,
             def account(n_workers):
                 return ex.launches_and_bytes()
         else:
-            ex = _LeafGathers(eng.policy, lay, group)
+            ex = _LeafGathers(eng.policy, lay, group, tp)
             shards = FsdpLayout.from_tree(
-                lay.aparams, eng.policy, paths=lay.plan.paths,
+                lay.aparams if tp is None else tp.block_shapes(lay.aparams),
+                eng.policy, paths=lay.plan.paths,
                 shard_dims=lay.plan.full_shard_dims(), n_shards=lay.n_dp)
-            schedule = _fsdp_per_leaf(model, ex)
-            stats = per_leaf_fsdp_stats(model, tcfg, lay)
+            schedule = _fsdp_per_leaf(model, ex, tp)
+            stats = per_leaf_fsdp_stats(model, tcfg, lay, lay.plan.n_model)
 
             def account(n_workers):
                 return stats
     else:
-        schedule, ex = _replicated(model, tcfg, eng, collect_stats)
+        schedule, ex = _replicated(model, tcfg, eng, collect_stats, tp)
         account = ex.launches_and_bytes
         if lay.two_level:
             def links():
@@ -766,11 +894,12 @@ def make_train_step(model: LM, tcfg: TrainConfig,
         return account(n_workers) if data_parallel else (0, 0.0)
 
     return _with_attrs(step_fn, ex, lay, group, shards, launches_and_bytes,
-                       links)
+                       links, tp)
 
 
 def _with_attrs(fn, exchange, layout, group, shards, launches_and_bytes,
-                links):
+                links, tp=None):
+    fn.tp = tp
     fn.exchange = exchange
     fn.layout = layout
     fn.group = group
@@ -801,19 +930,25 @@ def _metrics(loss, metrics, lr, stats, dev, group) -> Dict[str, Any]:
     return out
 
 
-def _grad(model: LM, state: TrainState, batch, gather=None):
-    """(loss, metrics, grads) of the local batch."""
+def _grad(model: LM, state: TrainState, batch, gather=None,
+          tp: Optional[ModelShards] = None):
+    """(loss, metrics, grads) of the local batch (this rank's TP blocks of
+    the grads under a model axis)."""
     params = tree_map(lambda t: t.detach().requires_grad_(True),
                       state.params)
-    loss, metrics = (model.loss(params, batch) if gather is None
-                     else model.loss(params, batch, gather))
+    kw = {} if tp is None else {"tp": tp.model_tp}
+    loss, metrics = (model.loss(params, batch, **kw) if gather is None
+                     else model.loss(params, batch, gather, **kw))
     grads = tree_unflatten(state.params, torch.autograd.grad(
         loss, tree_leaves(params)))
     return loss, metrics, grads
 
 
-def _replicated(model, tcfg, eng: ExchangeEngines, collect_stats):
-    """The replicated mode's schedule -> (schedule, engine)."""
+def _replicated(model, tcfg, eng: ExchangeEngines, collect_stats, tp=None):
+    """The replicated mode's schedule -> (schedule, engine). Under a model
+    axis the gradient's TP blocks (and a params-shaped EF's) are gathered
+    over the model group before the exchange, and each rank keeps its
+    blocks of the mean (and of the new EF)."""
     lay, data_parallel = eng.layout, eng.data_parallel
     paths = lay.plan.paths
     if tcfg.fused_exchange:
@@ -868,16 +1003,25 @@ def _replicated(model, tcfg, eng: ExchangeEngines, collect_stats):
     exchange = fused if tcfg.fused_exchange else per_leaf
 
     def schedule(state, batch, step_key):
-        loss, metrics, grads = _grad(model, state, batch)
-        new_ef, stats = state.ef, None
-        use_ef = (tcfg.error_feedback and state.ef is not None
+        loss, metrics, grads = _grad(model, state, batch, tp=tp)
+        ef_in = state.ef
+        tree_ef = ef_in is not None and not isinstance(ef_in, tuple)
+        if tp is not None:
+            grads, ef_full = tp.full(grads, ef_in if tree_ef else None)
+            ef_in = ef_full if tree_ef else ef_in
+        new_ef, stats = ef_in, None
+        use_ef = (tcfg.error_feedback and ef_in is not None
                   and not ex.is_identity)
         if use_ef and not lay.two_level:
             # compensate last step's local quantization error first
-            grads = tree_map(lambda g, e: g + e.to(g.dtype), grads, state.ef)
+            grads = tree_map(lambda g, e: g + e.to(g.dtype), grads, ef_in)
         if data_parallel or not ex.is_identity:
-            grads, ef, stats = exchange(grads, step_key, use_ef, state.ef)
+            grads, ef, stats = exchange(grads, step_key, use_ef, ef_in)
             new_ef = ef if use_ef else new_ef
+        if tp is not None:
+            grads = tp.block(grads)
+            if tree_ef:
+                new_ef = tp.block(new_ef)
         return loss, metrics, grads, new_ef, stats
 
     return schedule, ex
@@ -923,18 +1067,20 @@ class _LeafGathers:
     """The per-leaf fsdp gathers, one per leaf path under its resolved
     quantizer (fsdp gather for a sharded leaf, replicated gather else)."""
 
-    def __init__(self, policy: QuantPolicy, lay: StepLayout, group):
+    def __init__(self, policy: QuantPolicy, lay: StepLayout, group,
+                 tp: Optional[ModelShards] = None):
         self.fns = {}
         for path in tree_leaves(lay.plan.paths):
             cfg = policy.resolve(path)
             qz = cfg.to_quantizer()
             dim = lay.plan.gather_dims.get(path)
+            tp_dim = lay.plan.tp_dims.get(path)
             self.fns[path] = (
-                make_replicated_gather(qz, group,
-                                       server_requant=cfg.server_requant)
+                make_replicated_gather(
+                    qz, group, server_requant=cfg.server_requant,
+                    tp_axis=None if tp is None else tp.axis, tp_dim=tp_dim)
                 if dim is None else
-                make_fsdp_gather(qz, group, dim=dim,
-                                 tp_dim=lay.plan.tp_dims.get(path)))
+                make_fsdp_gather(qz, group, dim=dim, tp_dim=tp_dim))
 
     def hook(self, step_key: torch.Tensor):
         def gather(path, leaf, salt):
@@ -944,12 +1090,12 @@ class _LeafGathers:
         return gather
 
 
-def _fsdp_per_leaf(model: LM, gathers: _LeafGathers):
+def _fsdp_per_leaf(model: LM, gathers: _LeafGathers, tp=None):
     """The per-leaf fsdp schedule: each leaf's gather does its own
     exchange in the backward."""
     def schedule(state, batch, step_key):
         loss, metrics, grads = _grad(model, state, batch,
-                                     gathers.hook(step_key))
+                                     gathers.hook(step_key), tp)
         return loss, metrics, grads, state.ef, None
     return schedule
 
@@ -1151,6 +1297,9 @@ class ScheduledTrainStep:
             raise ValueError(
                 "ScheduledTrainStep derives the per-phase policy from the "
                 "controller's BitSchedule — leave TrainConfig.policy unset")
+        mesh = world_kw.get("mesh")
+        if mesh is not None and mesh.n_model > 1:
+            tp_mod.refuse("the adaptive bit schedule (ScheduledTrainStep)")
         self.model, self.lr_fn = model, lr_fn
         self.controller = controller
         self.schedule = controller.schedule
@@ -1178,6 +1327,7 @@ class ScheduledTrainStep:
         first = self._build(self.schedule.ceil_assignment())
         self.exchange, self.layout = first.exchange, first.layout
         self.group, self.shards = first.group, first.shards
+        self.tp = first.tp
 
     @property
     def init_config(self) -> TrainConfig:

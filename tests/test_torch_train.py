@@ -275,7 +275,8 @@ def test_train_config_refuses_unported(world1):
     # fsdp, the two-level hierarchy and its async window are ported
     # (test_torch_fsdp_train.py, test_torch_hierarchical.py,
     # test_torch_async.py); TrainConfig refuses what the reference's
-    # refuses, with its messages, and model parallelism stays refused
+    # refuses, with its messages; model parallelism is ported, and its
+    # TP dims are the reference's (every config: test_torch_tp_plan.py)
     assert TrainConfig(mode="fsdp", hierarchy="two_level").mode == "fsdp"
     tcfg = TrainConfig(policy="orq-9", hierarchy="two_level_async",
                        local_steps=4)
@@ -302,10 +303,14 @@ def test_train_config_refuses_unported(world1):
         TrainConfig(compute_dtype="bf16")
     from repro_torch.train.step import plan_sharding_shapes
     model = LM(get_smoke_config("lm-100m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan_sharding_shapes(model, model.abstract_params(),
-                             dp_axes=("data",),
-                             axis_sizes={"data": 1, "model": 2})
+    sizes = {"data": 1, "model": 2}
+    jm = JLM(jget_smoke_config("lm-100m"))
+    want = jstep.plan_sharding_shapes(
+        jm, jax.eval_shape(jm.init, jax.random.key(0)), dp_axes=("data",),
+        axis_sizes=sizes).tp_dims
+    assert plan_sharding_shapes(model, model.abstract_params(),
+                                dp_axes=("data",),
+                                axis_sizes=sizes).tp_dims == want
     # the pipelined schedule is ported; a K below 1 is refused, as the
     # reference's engine refuses it
     with pytest.raises(ValueError, match="pipeline_chunks"):
@@ -348,15 +353,15 @@ def test_cli_runs_on_cpu(tmp_path):
     assert m["wire_bytes_per_worker"] > 0 and m["world_size"] == 1
 
 
-# the reference launcher's exits with code 2 (and the one flag whose path
-# is not ported), by what the message names
+# the reference launcher's exits with code 2, by what the message names
+# (--model-parallel 3 on a world of one: the host mesh's factor check)
 CLI_REFUSALS = {
     ("--bit-schedule", "default=orq@5..3", "--quant", "orq-9"):
         "mutually exclusive",
     ("--hierarchy", "two_level_async", "--local-steps", "4"):
         "needs an inter-pod dp axis",
     ("--local-steps", "4"): "set hierarchy='two_level_async'",
-    ("--model-parallel", "2"): "ROADMAP",
+    ("--model-parallel", "3"): "does not divide the device count 1",
     ("--bit-schedule", "default=orq@5..3", "--bit-budget", "1e5",
      "--per-leaf-exchange"): "--bit-budget needs the fused exchange",
 }
@@ -366,7 +371,7 @@ CLI_REFUSALS = {
 def test_cli_refuses_unported_flags(flags, capsys):
     """Refused while parsing, before any process group or model exists:
     the reference launcher's refusals of the bit schedule and async flags
-    (``--pods 1`` has no pod axis), and model parallelism, not ported.
+    (``--pods 1`` has no pod axis), and the host mesh's factor check.
     (Every ``--quant`` scheme trains; see ``test_torch_train_schemes.py``;
     ``--pipeline-chunks`` and ``--per-leaf-exchange`` run:
     ``test_torch_train_local.py``; ``--bit-schedule`` and the async
