@@ -282,6 +282,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             MP_ATOL; greedy picks equal where its top-2 margin exceeds
             MP_MARGIN). A failure in either process fails the phase. Times
             through the gloo model group are not tensor-parallel speed.
+25. model_parallel_archs  MLA, Mamba, RWKV-6 and whisper under phase
+            24's 1 x 2 world (``--model-parallel-archs-worker RANK DIR``):
+            (a) the sharded dense decode at published widths, batch 8
+            (deepseek 2 layers, jamba one pattern cycle of 8, rwkv6 2,
+            whisper 6 with the sharded ``warm_cache`` over (8, 1500,
+            512)), 64 prompt tokens in chunks of 32 (whisper) or 16 token
+            by token, then 4 greedy steps: p50, model-group all-reduces
+            and bytes a step, and on rank 0 the logits against the same
+            card's world of one (MP_ATOL; clear picks equal; a token an
+            MoE router sends elsewhere at a near-tie left out, counted);
+            the processes draw the weights in turn, each one's peak
+            reckoned first; (b) whisper trained at full width under TP,
+            orq-9 2 + 1 EF steps and BinGrad-b 2: wire bytes 101,427,160
+            / 25,261,104, phase 24's launches, every kernel call against
+            its plain version; (c) phase 22's one-layer full-width step
+            of jamba, rwkv6 and deepseek under TP: ms, own peak,
+            model-group traffic, each leaf's gradient against the world
+            of one (MPA_GRAD_REL); each smoke arch's TP exchange as (b);
+            (d) full-width lm-100m: 2 ``ScheduledTrainStep`` steps
+            (orq@5..3) and an ``AsyncTrainStep`` window (H = 2, a pod
+            axis of one) under the model axis, launches and bytes a step
+            equal to the world of one's.
     Phase 3 times ``encode_fused``, ``qdq_fused`` and both decodes at the
     training shape at 2 and 5 bits too (the schedule's widths).
 
@@ -4844,20 +4866,19 @@ def model_parallel_worker(rank: int, tmp: str) -> int:
     return 0
 
 
-def run_model_parallel(torch):
-    """Phase 24: the 1 (data) x 2 (model) world as two processes sharing
-    the card; a failure in either fails the phase. -> the launches of
-    both processes, summed."""
+def _run_workers(torch, flag, phase, timeout):
+    """The 1 x 2 world as two processes sharing the card
+    (``chip_smoke.py <flag> RANK DIR``); a failure in either fails the
+    phase -> the launches of both processes, summed."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"),
-         "--model-parallel-worker", str(r), tmp],
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r), tmp],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     try:
-        outs = [p.communicate(timeout=MP_TIMEOUT_S)[0] for p in procs]
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4869,7 +4890,7 @@ def run_model_parallel(torch):
                 print(line, flush=True)
     rcs = [p.returncode for p in procs]
     if rcs != [0, 0]:
-        raise AssertionError(f"model_parallel: worker exit codes {rcs}: "
+        raise AssertionError(f"{phase}: worker exit codes {rcs}: "
                              + "\n".join(o[-4000:] for o in outs))
     total, p50 = {}, {}
     for r in range(2):
@@ -4878,9 +4899,552 @@ def run_model_parallel(torch):
         for k, v in got["launches"].items():
             total[k] = total.get(k, 0) + v
         p50[r] = got["decode_p50_ms"]
-    emit("model_parallel", what="launches of both processes",
-         launches=total, decode_p50_ms=p50)
+    emit(phase, what="launches of both processes", launches=total,
+         decode_p50_ms=p50)
     return total
+
+
+def run_model_parallel(torch):
+    """Phase 24: the 1 (data) x 2 (model) world as two processes sharing
+    the card; a failure in either process fails the phase. -> the
+    launches of both processes, summed."""
+    return _run_workers(torch, "--model-parallel-worker", "model_parallel",
+                        MP_TIMEOUT_S)
+
+
+# ---------------------------------------------------------------------------
+# phase 25: every layer kind under the model axis
+# ---------------------------------------------------------------------------
+
+#: arch -> layers kept for the sharded serve: deepseek's dense first layer
+#: and one MLA + MoE layer, jamba's one pattern cycle, rwkv6's two layers,
+#: whisper at full depth
+MPA_SERVE = {"deepseek-v2-236b": 2, "jamba-v0.1-52b": 8, "rwkv6-3b": 2,
+             "whisper-base": 6}
+MPA_BATCH, MPA_MAX_LEN, MPA_CHUNK, MPA_STEPS = 8, 128, 32, 4
+#: the prompt: 64 tokens in chunks of MPA_CHUNK, or 16 token by token for
+#: the models with no chunked prefill (MLA, Mamba, RWKV)
+MPA_PROMPT = {True: 64, False: 16}
+#: the full-width one-layer training step of phase 22, under the model axis
+MPA_TRAIN_FULL = ("jamba-v0.1-52b", "rwkv6-3b", "deepseek-v2-236b")
+MPA_GRAD_REL = 2e-2            # bf16 parts rounded in another order
+MPA_SCHED = "default=orq@5..3"
+#: launches a process: whisper's 2 + 1 EF orq-9 steps and 2 BinGrad-b
+#: steps, each smoke arch's the same (MP_EXPECT's)
+MPA_EXPECT = {"orq-9": MP_EXPECT["orq-9"], "bingrad-b": MP_EXPECT["bingrad-b"]}
+
+
+def _mpa_model_counts(axis, c0, b0, steps):
+    return dict(model_collectives_per_step=(axis.collectives - c0) / steps,
+                model_bytes_per_step=(axis.bytes - b0) / steps)
+
+
+def _mpa_routes(torch):
+    """Record every MoE call's (probs, expert ids): -> (log, restore)."""
+    from repro_torch.models import moe
+
+    log, orig = [], moe._route
+
+    def rec(logits, spec):
+        r = orig(logits, spec)
+        log.append((r.probs.float().cpu(), r.topi.cpu()))
+        return r
+
+    moe._route = rec
+    return log, lambda: setattr(moe, "_route", orig)
+
+
+def _mpa_serve(torch, dev, mesh, smi, rank, arch, layers):
+    """(a) One arch at full width, depth cut to ``layers``, on the sharded
+    dense decode: batch MPA_BATCH with the cache's slots (MLA's latent,
+    whisper's frames, Mamba's channels, RWKV's heads) over ``model``;
+    whisper's cross K/V through the sharded warm step on (8, 1500, 512)
+    frames; the prompt, then MPA_STEPS greedy steps; on rank 0 the logits
+    against the same card's world of one fed the same tokens (MP_ATOL,
+    greedy picks where the margin is clear; a token an MoE router sends
+    elsewhere at a near-tie is left out and counted)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.launch.serve import frame_embeds
+    from repro_torch.models import LM
+    from repro_torch.models.model import map_tree
+    from repro_torch.serve.step import (make_chunked_prefill_step,
+                                        make_serve_step, make_warm_step,
+                                        plan_serve_sharding)
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = LM(cut_depth(get_config(arch), layers))
+    cfg = model.cfg
+    ap = model.abstract_params()
+    n = sum(t.numel() for t in tree_leaves(ap))
+    plan = plan_serve_sharding(model, ap, model.abstract_cache(
+        MPA_BATCH, MPA_MAX_LEN), mesh)
+    # each process's own peak, reckoned before the draw: the f32 draw and
+    # its bf16 copy, then rank 0 keeps the bf16 model (its world of one)
+    # beside its blocks; the processes draw in turn
+    emit("model_parallel_archs", rank=rank, arch=arch, layers=layers,
+         what="memory plan", n_params=n,
+         draw_peak_bytes=6 * n, kept_bytes=(2 * n if rank == 0 else 0)
+         + n, device=smi)
+    params = pb = None
+    for turn in (1, 0):
+        if rank == turn:
+            full = map_tree(lambda t: t.to(torch.bfloat16), model.init(
+                torch.Generator(device=dev).manual_seed(0), device=dev))
+            pb = shard_params(full, plan, mesh.coords)
+            params = full if rank == 0 else None
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    chunked = model.supports_chunked_prefill()
+    n_prompt = MPA_PROMPT[chunked]
+    prompt = torch.randint(0, cfg.vocab_size, (MPA_BATCH, n_prompt),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    enc = (frame_embeds(cfg, MPA_BATCH, 0, dev) if cfg.encoder else None)
+
+    ax = mesh.model_axis
+    counts = {}
+
+    def run(decode, prefill, warm, p, cache):
+        lgs, fed, step_s = [], [], []
+        if warm is not None:
+            warm(p, cache, enc)
+        if chunked:
+            for off in range(0, n_prompt, MPA_CHUNK):
+                lg, cache = prefill(p, cache, prompt[:, off:off + MPA_CHUNK],
+                                    off)
+        else:
+            for i in range(n_prompt):
+                lg, cache = decode(p, cache, prompt[:, i:i + 1], i)
+        lgs.append(lg[:, -1:])
+        toks = lg[:, -1].argmax(-1)[:, None]
+        c0, b0 = ax.collectives, ax.bytes
+        for i in range(MPA_STEPS):
+            fed.append(toks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = decode(p, cache, toks, n_prompt + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            lgs.append(lg)
+            toks = lg[:, -1].argmax(-1)[:, None]
+        counts.update(_mpa_model_counts(ax, c0, b0, MPA_STEPS))
+        return torch.cat(lgs, 1), fed, step_s
+
+    routes, restore = _mpa_routes(torch)
+    try:
+        cache = shard_cache(model.init_cache(MPA_BATCH, MPA_MAX_LEN,
+                                             device=dev), plan, mesh.coords)
+        got, fed, step_s = run(
+            make_serve_step(model, mesh, plan),
+            make_chunked_prefill_step(model, mesh, plan),
+            make_warm_step(model, mesh, plan) if enc is not None else None,
+            pb, cache)
+        tp_routes = list(routes)
+        routes.clear()
+        row = dict(arch=arch, layers=layers, batch=MPA_BATCH,
+                   max_len=MPA_MAX_LEN, prompt=n_prompt, chunked=chunked,
+                   frames=cfg.encoder.num_frames if enc is not None else 0,
+                   decode_p50_ms=statistics.median(step_s) * 1e3,
+                   step_ms=[x * 1e3 for x in step_s],
+                   **counts,
+                   cache_specs={k: v for k, v in
+                                plan.cache_specs[0]["pos0"].items()})
+        del cache
+        if rank == 0:
+            # the same card's world of one, fed the same tokens
+            cache = model.init_cache(MPA_BATCH, MPA_MAX_LEN, device=dev)
+            feed = iter(fed)
+
+            def one_decode(p, c, toks, pos):
+                if pos >= n_prompt:
+                    toks = next(feed)
+                return model.decode_step(p, c, toks, pos)
+
+            want, _, _ = run(one_decode, model.prefill_chunk,
+                             model.warm_cache if enc is not None else None,
+                             params, cache)
+            del cache
+            one_routes = list(routes)
+            keep = torch.ones(want.shape[:2], dtype=torch.bool,
+                              device=want.device)
+            # a token the router sends to another expert set at a
+            # near-tie: its logits are left out (the MoE layers here are
+            # the models' last, decoding one token a call: a flip changes
+            # only that token's logits)
+            n_moe = sum(s.moe for s in model.specs)
+            if len(one_routes) != len(tp_routes) or (n_moe and chunked):
+                raise AssertionError(f"model_parallel_archs {arch}: "
+                                     f"routing calls differ")
+            flips = 0
+            for c, ((probs, ids), (_, tids)) in enumerate(
+                    zip(one_routes, tp_routes)):
+                k = ids.shape[-1]
+                flip = ~(ids.sort(-1).values == tids.sort(-1).values).all(-1)
+                srt = probs.sort(-1, descending=True).values
+                margin = srt[:, k - 1] - srt[:, k]
+                if bool((margin[flip] >= ROUTE_TIE).any()):
+                    raise AssertionError(
+                        f"model_parallel_archs {arch}: a routing flip at a "
+                        f"margin of {margin[flip].tolist()}")
+                flips += int(flip.sum())
+                t = c // n_moe - (n_prompt - 1)
+                if t >= 0:
+                    keep[flip.to(keep.device), t] = False
+            top2 = want.topk(2, dim=-1).values
+            clear = ((top2[..., 0] - top2[..., 1]) > MP_MARGIN) & keep
+            agree = got.argmax(-1)[clear] == want.argmax(-1)[clear]
+            row.update(max_abs_err=float(((got - want).abs().amax(-1)
+                                          * keep).max()),
+                       atol=MP_ATOL, route_flips=flips,
+                       clear_picks=int(clear.sum()),
+                       picks=int(clear.numel()),
+                       clear_picks_equal=bool(agree.all()))
+            if row["max_abs_err"] > MP_ATOL or not row["clear_picks_equal"]:
+                raise AssertionError(f"model_parallel_archs {arch}: {row}")
+    finally:
+        restore()
+    emit("model_parallel_archs", rank=rank, what="(a) sharded decode",
+         note="the model group is gloo through the host: not "
+              "tensor-parallel speed", device=smi, **row)
+    del params, pb
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mpa_exchange(torch, dev, mesh, smi, rank, arch, runs, size):
+    """(b) / (c) TP training through the exchange: ``runs`` (quant ->
+    list of (steps, error feedback)) of ``make_train_step(mesh=...)`` on
+    the model at ``size`` ("full": whisper at published widths, bucket
+    2048, 8 x 128 tokens and (8, 1500, 512) frames; "smoke": bucket 512,
+    8 x 64), every kernel call recorded at its dispatcher and held
+    against its plain version (brief); the launches a process, the world
+    of one's wire bytes (``policy_stats`` at L = 1), model-group
+    collectives and bytes a step, step ms and own peak."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.comm.exchange import policy_stats
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = (get_smoke_config if size == "smoke" else get_config)(arch)
+    shape = (WHISPER_TRAIN[size] if cfg.encoder else
+             dict(bucket=512, batch=8, seq=64))
+    model = LM(cfg)
+    sizes = _path_sizes(model)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape["seq"],
+                       batch_size=shape["batch"], seed=0)
+    enc = None
+    if cfg.encoder:
+        enc = 0.02 * torch.randn(
+            (shape["batch"], cfg.encoder.num_frames, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(2),
+            device=dev)
+    total = {}
+    for quant, plan in runs.items():
+        policy = QuantPolicy.parse(quant, bucket_size=shape["bucket"])
+        wire = policy_stats(policy, sizes, 1)[1]
+        _zero_counters()
+        rows, calls = [], []
+        before = _read_counters()
+        restore = _record_ops(torch, calls)
+        try:
+            for steps, ef in plan:
+                tcfg = TrainConfig(policy=policy, error_feedback=ef)
+                fn = make_train_step(model, tcfg, constant_lr(0.05),
+                                     mesh=mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                state = init_state(model, tcfg, seed=0, device=dev, step=fn)
+                key = prng.key(0, device=dev)
+                losses, step_s = [], []
+                ax = mesh.model_axis
+                c0, b0 = ax.collectives, ax.bytes
+                for i in range(steps):
+                    batch = {"tokens": data.batch(i, device=dev)["tokens"]}
+                    if enc is not None:
+                        batch["enc_embeds"] = enc
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = fn(state, batch, key)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                peak = torch.cuda.max_memory_allocated() - base
+                n_coll, wbytes = fn.launches_and_bytes(1)
+                rows.append(dict(
+                    steps=steps, error_feedback=ef, losses=losses,
+                    step_s=step_s,
+                    step_p50_ms=statistics.median(step_s) * 1e3,
+                    peak_mem_above_start=peak,
+                    collective_launches_per_step=n_coll,
+                    wire_bytes_per_worker=wbytes,
+                    **_mpa_model_counts(ax, c0, b0, steps)))
+                del state
+        finally:
+            restore()
+        _check_recorded(calls, before, f"model_parallel_archs {arch}")
+        launches = _read_counters()
+        want = _expect(MPA_EXPECT[quant])
+        emit("model_parallel_archs", rank=rank,
+             what=f"({'b' if size == 'full' else 'c'}) TP train {size}",
+             arch=arch, quant=quant, bucket=shape["bucket"],
+             batch=shape["batch"], seq=shape["seq"], runs=rows,
+             launches=launches, expected_launches=want,
+             wire_expected=wire, device=smi,
+             note="the model group is gloo through the host: these step "
+                  "times are not tensor-parallel speed")
+        for row in rows:
+            if (not all(x == x and abs(x) < float("inf")
+                        for x in row["losses"])
+                    or row["collective_launches_per_step"] != 4
+                    or row["wire_bytes_per_worker"] != wire
+                    or (cfg.encoder and size == "full"
+                        and wire != WHISPER_WIRE["full"][quant])
+                    or row["model_collectives_per_step"] <= 0):
+                raise AssertionError(f"model_parallel_archs {arch} "
+                                     f"{quant}: {row}")
+        if launches != want:
+            raise AssertionError(f"model_parallel_archs {arch} {quant}: "
+                                 f"launches {launches} != {want}")
+        _hold_exchange_calls(torch, f"{arch} {size}", quant, calls, smi,
+                             phase="model_parallel_archs", brief=True)
+        del calls
+        torch.cuda.empty_cache()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _mpa_train_full(torch, dev, mesh, smi, rank, arch):
+    """(c) Phase 22's full-width one-layer training step (batch
+    REC_TRAIN_BATCH x REC_TRAIN_SEQ, no exchange) on this rank's TP
+    blocks: ms (the median of REC_TRAIN_REPS after a warm-up), own peak,
+    model-group collectives and bytes; each rank's blocks of the
+    gradient against the same card's world of one, the relative norm of
+    each leaf summed over the ranks (MPA_GRAD_REL)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.models import LM
+    from repro_torch.train.step import ModelShards, plan_sharding
+    from repro_torch.utils.pytree import tree_leaves, tree_unflatten
+
+    model = LM(cut_depth(get_config(arch), 1))
+    cfg = model.cfg
+    sh = ModelShards(mesh.model_axis, plan_sharding(
+        model, model.abstract_params(), mesh))
+    toks = torch.randint(0, cfg.vocab_size, (REC_TRAIN_BATCH, REC_TRAIN_SEQ),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    # the world of one's gradient, this rank's blocks of it (in turn)
+    want = None
+    for turn in (1, 0):
+        if rank == turn:
+            full = model.init(torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+            leaves = [t.requires_grad_(True) for t in tree_leaves(full)]
+            loss_one, _ = model.loss(full, {"tokens": toks})
+            g = torch.autograd.grad(loss_one, leaves)
+            want = tree_leaves(sh.block(tree_unflatten(full, list(g))))
+            params = sh.block(full)
+            del full, leaves, g
+            torch.cuda.empty_cache()
+        dist.barrier()
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    n_local = sum(t.numel() for t in leaves)
+
+    def step():
+        loss, _ = model.loss(params, {"tokens": toks}, tp=sh.model_tp)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss, grads = step()
+    num = torch.stack([((a.float() - b.float()) ** 2).sum()
+                       for a, b in zip(grads, want)])
+    den = torch.stack([(b.float() ** 2).sum() for b in want])
+    sums = mesh.model_axis.all_reduce(torch.stack([num, den]))
+    rel = (sums[0].sqrt() / sums[1].sqrt().clamp(min=1e-30)).tolist()
+    paths = tree_leaves(model.param_paths(model.abstract_params()))
+    worst = max(range(len(rel)), key=lambda i: rel[i])
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    del grads, want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ax = mesh.model_axis
+    times = []
+    c0, b0 = ax.collectives, ax.bytes
+    for _ in range(REC_TRAIN_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del grads
+    peak = torch.cuda.max_memory_allocated() - base
+    row = dict(arch=arch, layers=1, layer_kind=model.specs[0].kind,
+               params_on_rank=n_local, batch=REC_TRAIN_BATCH,
+               seq=REC_TRAIN_SEQ, loss=float(loss.detach()), finite=finite,
+               step_ms=statistics.median(times), step_ms_all=times,
+               step_peak_above_params=peak,
+               grad_rel_worst=rel[worst], grad_rel_worst_leaf=paths[worst],
+               grad_rel_bound=MPA_GRAD_REL,
+               **_mpa_model_counts(ax, c0, b0, REC_TRAIN_REPS))
+    emit("model_parallel_archs", rank=rank,
+         what="(c) TP train forward + backward, full width, 1 layer",
+         note="the model group is gloo through the host: not "
+              "tensor-parallel speed", device=smi, **row)
+    if not finite or rel[worst] > MPA_GRAD_REL:
+        raise AssertionError(f"model_parallel_archs {arch} full-width "
+                             f"TP step: {row}")
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mpa_lm100m(torch, dev, mesh, smi, rank):
+    """(d) Full-width lm-100m: 2 ``ScheduledTrainStep`` steps (orq@5..3,
+    resolved every step) and one ``AsyncTrainStep`` window (H = 2 on a
+    pod axis of one, error feedback) under the model axis, each against
+    the same steps on the process's dp group without it: the launches and
+    the bytes a step equal. -> the TP side's launches (the baseline's are
+    in its own ``world_of_one`` record only)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import (BitBudgetController, BitSchedule,
+                                         QuantPolicy)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train.step import ScheduledTrainStep
+
+    model = LM(get_config("lm-100m"))
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=128,
+                       batch_size=8, seed=0)
+    key = prng.key(0, device=dev)
+    out, total = {}, {}
+    for what in ("bit_schedule", "async"):
+        res = {}
+        for side, kw in (("tp", dict(mesh=mesh)),
+                         ("one", dict(group=mesh.dp_group))):
+            _zero_counters()
+            if what == "bit_schedule":
+                ctl = BitBudgetController(BitSchedule.parse(
+                    MPA_SCHED, bucket_size=2048), total_steps=2,
+                    resolve_every=1)
+                fn = ScheduledTrainStep(model, TrainConfig(), ctl,
+                                        constant_lr(0.05), **kw)
+                tcfg = fn.init_config
+            else:
+                tcfg = TrainConfig(
+                    policy=QuantPolicy.parse("orq-9", bucket_size=2048),
+                    error_feedback=True, hierarchy="two_level_async",
+                    local_steps=2)
+                fn = make_train_step(model, tcfg, constant_lr(0.05),
+                                     pod_axis=True, **kw)
+            state = init_state(model, tcfg, seed=0, device=dev, step=fn)
+            steps, step_s = [], []
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fn(state, {"tokens": data.batch(
+                    i, device=dev)["tokens"]}, key)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                steps.append(dict(
+                    loss=float(m["loss"]),
+                    bits=(list(fn.last_assignment)
+                          if what == "bit_schedule" else None),
+                    launches_and_bytes=list(fn.launches_and_bytes(1))))
+            res[side] = dict(steps=steps, step_s=step_s,
+                             launches=_read_counters())
+            if side == "tp":     # the path's own launches, not the baseline's
+                for k, v in res[side]["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            del state, fn
+            torch.cuda.empty_cache()
+        same = ([s["launches_and_bytes"] for s in res["tp"]["steps"]]
+                == [s["launches_and_bytes"] for s in res["one"]["steps"]]
+                and res["tp"]["launches"] == res["one"]["launches"]
+                and [s["bits"] for s in res["tp"]["steps"]]
+                == [s["bits"] for s in res["one"]["steps"]])
+        finite = all(s["loss"] == s["loss"] for r in res.values()
+                     for s in r["steps"])
+        emit("model_parallel_archs", rank=rank,
+             what=f"(d) lm-100m full width, {what} under the model axis",
+             tp=res["tp"], world_of_one=res["one"],
+             launches_and_bytes_equal=same, device=smi)
+        if not same or not finite or not any(res["tp"]["launches"].values()):
+            raise AssertionError(f"model_parallel_archs lm-100m {what}: "
+                                 f"{res}")
+        out[what] = res
+    return total
+
+
+def model_parallel_archs_worker(rank: int, tmp: str) -> int:
+    """One of phase 25's two processes on the one card (phase 24's
+    world)."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=2)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        smi = nvidia_smi()
+        mesh = make_host_mesh(model=2, dp_backend="nccl",
+                              model_backend="gloo")
+        decode = {arch: _mpa_serve(torch, dev, mesh, smi, rank, arch, n)
+                  for arch, n in MPA_SERVE.items()}
+        launches = _mpa_exchange(
+            torch, dev, mesh, smi, rank, WHISPER,
+            {"orq-9": [(2, False), (1, True)], "bingrad-b": [(2, False)]},
+            "full")
+        for arch in MPA_TRAIN_FULL:
+            _mpa_train_full(torch, dev, mesh, smi, rank, arch)
+            got = _mpa_exchange(
+                torch, dev, mesh, smi, rank, arch,
+                {"orq-9": [(2, False), (1, True)],
+                 "bingrad-b": [(2, False)]}, "smoke")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        for k, v in _mpa_lm100m(torch, dev, mesh, smi, rank).items():
+            launches[k] = launches.get(k, 0) + v
+        with open(f"{tmp}/launches{rank}.json", "w") as f:
+            json.dump({"launches": launches,
+                       "decode_p50_ms": {k: v["decode_p50_ms"]
+                                         for k, v in decode.items()}}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+MPA_TIMEOUT_S = 600
+
+
+def run_model_parallel_archs(torch):
+    """Phase 25: MLA, Mamba, RWKV-6 and whisper under the 1 (data) x 2
+    (model) world of phase 24; a failure in either process fails the
+    phase. -> the launches of both processes, summed."""
+    return _run_workers(torch, "--model-parallel-archs-worker",
+                        "model_parallel_archs", MPA_TIMEOUT_S)
 
 
 def start_world(torch):
@@ -4899,6 +5463,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--model-parallel-worker"]:
         return model_parallel_worker(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--model-parallel-archs-worker"]:
+        return model_parallel_archs_worker(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5008,6 +5574,8 @@ def main() -> int:
     lap("whisper")
     mp_par_launches = run_model_parallel(torch)
     lap("model_parallel")
+    mpa_launches = run_model_parallel_archs(torch)
+    lap("model_parallel_archs")
 
     paths = {"serve_orq9": serve_launches,
              "serve_bingrad_b": bin_serve_launches,
@@ -5026,7 +5594,8 @@ def main() -> int:
              "moe_mla": moe_launches,
              "recurrent": rec_launches,
              "whisper": whisper_launches,
-             "model_parallel": mp_par_launches}
+             "model_parallel": mp_par_launches,
+             "model_parallel_archs": mpa_launches}
     unlaunched = [k for k in MP_KERNELS if not mp_launches.get(k)]
     if unlaunched:
         raise AssertionError(f"the multi-pass path launched no {unlaunched}")

@@ -17,6 +17,9 @@ last line with the checks, which every run must pass:
 
 Exits 1 if a check fails. ``--device cpu`` runs it on gloo processes;
 a caller that has initialized a process group already runs it in that.
+``--model-parallel N`` adds a model axis (``launch.train``'s): every
+digest is then of the params and anchor gathered over ``model``, so the
+model ranks of a worker agree.
 """
 from __future__ import annotations
 
@@ -57,10 +60,14 @@ def _run(base, hierarchy: str, h: int, pods: int) -> dict:
         dev = tree_leaves(state.params)[0].device
         sync = (step_fn.is_sync_step(i) if hasattr(step_fn, "is_sync_step")
                 else True)
+        params, anchor = state.params, (None if state.outer is None
+                                        else state.outer.anchor)
+        if step_fn.tp is not None:
+            params = step_fn.tp.full(params)
+            anchor = None if anchor is None else step_fn.tp.full(anchor)
         steps.append({"step": i, "sync": sync,
-                      "params": _everyone(_sha(state.params), dev),
-                      "anchor": (None if state.outer is None
-                                 else _sha(state.outer.anchor))})
+                      "params": _everyone(_sha(params), dev),
+                      "anchor": None if anchor is None else _sha(anchor)})
 
     r = launcher.train(base + ["--pods", str(pods), "--hierarchy", hierarchy,
                                "--local-steps", str(h)], on_step=on_step)
@@ -117,11 +124,13 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--model-parallel", type=int, default=1)
     args = ap.parse_args(argv)
     base = ["--arch", args.arch, "--quant", args.quant, "--bucket",
             str(args.bucket), "--batch", str(args.batch), "--seq",
             str(args.seq), "--steps", str(args.steps), "--error-feedback",
-            "--log-every", str(args.steps)]
+            "--log-every", str(args.steps), "--model-parallel",
+            str(args.model_parallel)]
     if args.smoke:
         base.append("--smoke")
     if args.device:

@@ -22,7 +22,8 @@ encoder-decoder config (whisper) serves on the dense path only: its frame
 embeddings (batch, frames, d_model), N(0, 0.02^2) from
 ``torch.Generator(seed + 2)`` in bf16 (the reference's stub of the audio
 frontend), go through the encoder into the cache's cross K/V
-(``LM.warm_cache``) before the clock starts, timed on their own. Timing
+(``serve.step.make_warm_step`` on the mesh: ``LM.warm_cache``) before the
+clock starts, timed on their own. Timing
 starts AFTER a warm-up (a step on a throwaway cache, or a warm-up
 request), and prefill / decode throughput are reported separately, with
 the decode steps' p50 / p99 latency, the cache bytes (K/V bytes per
@@ -56,7 +57,8 @@ from repro_torch.models.model import map_tree
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.kv_cache import token_bytes_ratio
 from repro_torch.serve.step import (make_chunked_prefill_step,
-                                    make_serve_step, plan_serve_sharding)
+                                    make_serve_step, make_warm_step,
+                                    plan_serve_sharding)
 
 
 def _digest(toks: np.ndarray) -> str:
@@ -141,6 +143,7 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
                                mesh)
     decode_step = make_serve_step(model, mesh, plan)
     prefill_chunk = make_chunked_prefill_step(model, mesh, plan)
+    warm_step = make_warm_step(model, mesh, plan)
 
     def forward(fn, cache, tokens, pos):
         nonlocal forward_calls
@@ -152,7 +155,7 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
     # warm up on a throwaway cache
     warm = model.init_cache(args.batch, args.max_len, device=device)
     if enc is not None:
-        model.warm_cache(params, warm, enc)
+        warm_step(params, warm, enc)
     forward(decode_step, warm, prompt[:, :1], 0)
     if chunk:
         warm = model.init_cache(args.batch, args.max_len, device=device)
@@ -166,7 +169,7 @@ def _serve_dense(args, model, params, prompt, device) -> dict:
     warm_s = None
     if enc is not None:                # the encoder, before the clock
         t0 = time.perf_counter()
-        cache = model.warm_cache(params, cache, enc)
+        cache = warm_step(params, cache, enc)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         warm_s = time.perf_counter() - t0

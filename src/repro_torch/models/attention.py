@@ -178,21 +178,35 @@ def split_attention(q, k_cache, v_cache, mask, spec: AttnSpec,
     whose combine XLA derives): q (B,T,H,hd) the same on every rank, this
     rank's slots in k_cache / v_cache (B,C_loc,KV,hd) and mask (B,T,C_loc).
     Each rank attends its slots to a partial (max, sum, PV) in float32;
-    the partials are gathered (one all-reduce) and combined, rescaled to
-    the largest max, in axis order. A rank whose slots are all masked
-    adds nothing."""
+    the partials are combined (:func:`combine_split`)."""
     B, T, H, hd = q.shape
     s = _chunk_scores(q, k_cache, spec)                 # (B,H,T,C_loc)
-    s = torch.where(mask[:, None], s, NEG_INF)
-    m = s.amax(dim=-1)                                  # (B,H,T)
-    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
-    p = torch.where(mask[:, None], torch.exp(s - m_safe[..., None]), 0.0)
+    m, p = split_softmax(s, mask[:, None])
     o = _chunk_out(p, v_cache, B, H, T)                 # (B,T,H,hd) f32
-    ms, ls, os_ = tp_mod.gather_blocks(ax, [m, p.sum(dim=-1), o])
+    return combine_split(ax, m, p.sum(dim=-1), o).to(q.dtype)
+
+
+def split_softmax(s, mask):
+    """The partial softmax of scores s (B, H, T, C_loc) over this rank's
+    slots: (max (B, H, T), exp(s - max) masked to 0)."""
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    return m, torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+
+
+def combine_split(ax: "tp_mod.Axis", m, l, o):
+    """The partials of every rank -> the attention over all slots: m, l
+    (B, H, T) this rank's max and sum, o (B, T, H, ...) its unnormalised
+    output, all float32. The partials are gathered (one all-reduce) and
+    combined, rescaled to the largest max, in axis order; a rank whose
+    slots are all masked adds nothing."""
+    ms, ls, os_ = tp_mod.gather_blocks(ax, [m, l, o])
     top = ms.amax(dim=0)
     top = torch.where(top <= NEG_INF / 2, 0.0, top)
     w = torch.where(ms <= NEG_INF / 2, 0.0, torch.exp(ms - top))  # (n,B,H,T)
     den = (ls * w).sum(dim=0)                           # (B,H,T)
-    num = (os_ * w.permute(0, 1, 3, 2)[..., None]).sum(dim=0)
-    out = num / torch.clamp(den, min=1e-30).transpose(1, 2)[..., None]
-    return out.to(q.dtype)
+    extra = (None,) * (o.dim() - 3)
+    num = (os_ * w.permute(0, 1, 3, 2)[(...,) + extra]).sum(dim=0)
+    return num / torch.clamp(den, min=1e-30).transpose(1, 2)[(...,)
+                                                             + extra]

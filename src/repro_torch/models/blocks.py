@@ -26,14 +26,26 @@ have no chunked prefill (a prompt prefills token by token), as in the
 reference.
 
 Under a model axis (``tp``, a :class:`~repro_torch.models.tp.LayerTP`)
-a GQA layer runs on the local blocks of its leaves: in training and the
-prefill forward its attention is head-parallel (this rank's query and KV
-heads, as the reference's ``shard`` puts heads over ``model``,
-``attention.py:182``, ``blocks.py:239``), its FFN or its experts split by
-the plan; in the cached decode (:func:`apply_layer_cached_tp`) the
-projections are gathered to every head and the attention is split over
-the cache's slots (:func:`~repro_torch.models.attention.split_attention`).
-Every other layer kind is refused there (:func:`check_tp_layer`)."""
+every layer runs on the local blocks of its leaves, each leaf taken at the
+dim the plan split it on (``train/step.py`` / ``serve/step.py``; not
+always the Megatron one). In training and the prefill forward
+(:func:`apply_layer_train_tp`) attention is head-parallel (this rank's
+query heads, and the KV heads they read, as the reference's ``shard`` puts
+heads over ``model``, ``attention.py:182``, ``blocks.py:239``): GQA, MLA
+(through ``wq_b``, ``wkv_b`` and ``wo``; its q latent normed over the
+axis), whisper's encoder and cross-attention; Mamba is d_inner-parallel
+and RWKV-6 head-parallel (``ssm.py``, ``rwkv.py``); the FFN or the experts
+are split by the plan. Where GQA's query heads do not split over the
+axis, its attention runs replicated on its gathered leaves (MLA heads,
+Mamba channels, RWKV heads or experts that do not split are refused by
+``LM.check_tp``). In the cached decode
+(:func:`apply_layer_cached_tp`) the attention projections are gathered to
+every head and the attention is split over the cache's slots
+(:func:`~repro_torch.models.attention.split_attention`; MLA scores its
+slots of the latent cache for every head, cross-attention its block of
+the encoder's frames), and a recurrent layer reads and writes its state
+by the serve plan's split of each state leaf.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -46,13 +58,14 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import tp as tp_mod
 from repro_torch.models.attention import (NEG_INF, AttnSpec,
-                                         chunked_attention,
+                                         chunked_attention, combine_split,
                                          decode_attention,
                                          masked_decode_attention,
-                                         split_attention)
+                                         spec_rope, split_attention,
+                                         split_softmax)
 from repro_torch.models.layers import (apply_rope, dense_init, dense_mlp,
-                                       gated_mlp, gated_mlp_tp, layer_norm,
-                                       rms_norm)
+                                       dense_mlp_tp, gated_mlp, gated_mlp_tp,
+                                       layer_norm, rms_norm)
 from repro_torch.models.moe import MoESpec, moe_ffn, moe_ffn_tp
 
 
@@ -114,27 +127,6 @@ def check_ported_layer(cfg: ModelConfig, spec: LayerSpec) -> None:
             f"RMSNorm or layer norm only (kind={spec.kind!r}, "
             f"norm={cfg.norm!r}); other layers are not ported (see "
             f"ROADMAP.md)")
-
-
-def check_tp_layer(cfg: ModelConfig, spec: LayerSpec, n_model: int) -> None:
-    """Under a sharded mesh the port computes GQA attention layers (dense
-    or MoE FFN, RMSNorm) whose query and KV heads split evenly over the
-    model axis; MLA, Mamba, RWKV-6 and whisper's encoder and
-    cross-attention are refused (their sharding plans are ported)."""
-    check_ported_layer(cfg, spec)
-    what = None
-    if spec.kind in ("mamba", "rwkv"):
-        what = f"a {spec.kind} layer"
-    elif cfg.mla is not None:
-        what = "Multi-head Latent Attention"
-    elif cfg.encoder is not None or spec.cross_attn or not spec.causal:
-        what = "an encoder-decoder model (whisper)"
-    elif cfg.num_heads % n_model or cfg.num_kv_heads % n_model:
-        what = (f"attention whose {cfg.num_heads} query / "
-                f"{cfg.num_kv_heads} KV heads do not split over "
-                f"{n_model} model ranks (a block would cut a head)")
-    if what is not None:
-        tp_mod.refuse(what)
 
 
 def _norm_p(cfg: ModelConfig, D: int) -> dict:
@@ -205,7 +197,7 @@ def _init_mamba(cfg: ModelConfig, gen) -> dict:
     return {
         "norm": _norm_p(cfg, D),
         "in_proj": dense_init(gen, (D, 2 * d_in)),
-        "conv_w": dense_init(gen, (ms.d_conv, d_in)) * 0.1,
+        "conv_w": dense_init(gen, (ms.d_conv, d_in), scale=0.1),
         "conv_b": torch.zeros(d_in),
         "x_proj": dense_init(gen, (d_in, rank + 2 * N)),
         "dt_proj": dense_init(gen, (rank, d_in)),
@@ -225,11 +217,11 @@ def _init_rwkv(cfg: ModelConfig, spec: LayerSpec, gen) -> dict:
         "norm1": _norm_p(cfg, D),
         "norm2": _norm_p(cfg, D),
         "tm_mu": torch.full((6, D), 0.5),
-        "tm_w1": dense_init(gen, (D, 5 * Lm)) * 0.1,
-        "tm_w2": dense_init(gen, (5, Lm, D), in_axis=1) * 0.1,
+        "tm_w1": dense_init(gen, (D, 5 * Lm), scale=0.1),
+        "tm_w2": dense_init(gen, (5, Lm, D), in_axis=1, scale=0.1),
         "w0": torch.full((D,), -2.0),
-        "dec_w1": dense_init(gen, (D, Ld)) * 0.1,
-        "dec_w2": dense_init(gen, (Ld, D)) * 0.1,
+        "dec_w1": dense_init(gen, (D, Ld), scale=0.1),
+        "dec_w2": dense_init(gen, (Ld, D), scale=0.1),
         "u": dense_init(gen, (H, hd)),
         "wr": dense_init(gen, (D, D)),
         "wk": dense_init(gen, (D, D)),
@@ -408,10 +400,22 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec, p, x,
 # tensor parallel (under a model axis)
 # ---------------------------------------------------------------------------
 
+def _norm_leaves(tp: "tp_mod.LayerTP", p, name: str) -> dict:
+    """A norm's leaves (scale, and layer norm's bias), gathered on use."""
+    return tp_mod.full_tree(tp.axis, p[name], tp.dims[name])
+
+
 def _norm_tp(cfg: ModelConfig, tp: "tp_mod.LayerTP", p, name: str, x):
-    """RMSNorm by ``p[name]``'s scale, gathered on use when split."""
-    return rms_norm(x, tp_mod.full(tp.axis, p[name]["scale"],
-                                   tp.dims[name]["scale"]), cfg.norm_eps)
+    """The pre-norm ``p[name]`` (RMSNorm, or layer norm with its bias) of
+    the replicated x."""
+    return _apply_norm(cfg, _norm_leaves(tp, p, name), x)
+
+
+def _kv_heads(H: int, KV: int, n: int, i: int) -> list:
+    """The KV head that each of rank ``i``'s block of the H query heads
+    reads (H divisible by n), one per query head."""
+    Hn, g = H // n, H // KV
+    return [h // g for h in range(i * Hn, (i + 1) * Hn)]
 
 
 def _heads_tp(ax, x, pa, da, w: str, b: str, n_heads: int, hd: int,
@@ -429,19 +433,21 @@ def _heads_tp(ax, x, pa, da, w: str, b: str, n_heads: int, hd: int,
     if b in pa:
         y = y + tp_mod.full(ax, pa[b], da[b])
     if local:
-        y = tp_mod.own_block(ax, tp_mod.copy_to(ax, y), -1)
+        y = tp_mod.split_to(ax, y)
         n_heads //= ax.n
     return y.reshape(B, S, n_heads, hd)
 
 
-def _gqa_project_tp(cfg: ModelConfig, tp, pa, da, x, local: bool):
-    """q, k, v of a GQA layer under a model axis: this rank's heads
-    (``local``), or every head."""
-    ax, H, KV = tp.axis, cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim
-    q = _heads_tp(ax, x, pa, da, "wq", "bq", H, hd, local)
-    k = _heads_tp(ax, x, pa, da, "wk", "bk", KV, hd, local)
-    v = _heads_tp(ax, x, pa, da, "wv", "bv", KV, hd, local)
+def _gqa_project_tp(cfg: ModelConfig, tp, pa, da, x, local: bool,
+                    kv_x=None):
+    """q, k, v of a GQA layer under a model axis (k and v of ``kv_x`` when
+    given: cross-attention): this rank's heads (``local``; the KV heads
+    must split too), or every head."""
+    ax, hd = tp.axis, cfg.resolved_head_dim
+    kv_x = x if kv_x is None else kv_x
+    q = _heads_tp(ax, x, pa, da, "wq", "bq", cfg.num_heads, hd, local)
+    k = _heads_tp(ax, kv_x, pa, da, "wk", "bk", cfg.num_kv_heads, hd, local)
+    v = _heads_tp(ax, kv_x, pa, da, "wv", "bv", cfg.num_kv_heads, hd, local)
     if cfg.qk_norm:
         def scale(n):
             s = tp_mod.full(ax, pa[n], da[n])
@@ -449,6 +455,36 @@ def _gqa_project_tp(cfg: ModelConfig, tp, pa, da, x, local: bool):
         q = rms_norm(q, scale("q_norm"), cfg.norm_eps)
         k = rms_norm(k, scale("k_norm"), cfg.norm_eps)
     return q, k, v
+
+
+def _uneven_attention(cfg: ModelConfig, tp, pa, da, x, kv_x, asp: AttnSpec):
+    """Head-parallel attention whose query heads split over the axis but
+    whose KV heads do not: this rank's query heads, and the KV heads they
+    read cut from the replicated K / V (all KV heads, roped). K and V
+    enter the rank's heads in float32 (their values exact), so that the
+    parts of their gradient that several ranks' query heads add are summed
+    over the axis in float32 and rounded once, where the replicated
+    attention rounds the sum over each KV head's group -> this rank's
+    heads' output."""
+    ax = tp.axis
+    q = _heads_tp(ax, x, pa, da, "wq", "bq", cfg.num_heads,
+                  cfg.resolved_head_dim, True)
+    k, v = (_heads_tp(ax, kv_x, pa, da, w, b, cfg.num_kv_heads,
+                      cfg.resolved_head_dim, False)
+            for w, b in (("wk", "bk"), ("wv", "bv")))
+    if cfg.qk_norm:
+        q = rms_norm(q, tp_mod.copy_to(ax, tp_mod.full(
+            ax, pa["q_norm"], da["q_norm"])), cfg.norm_eps)
+        k = rms_norm(k, tp_mod.full(ax, pa["k_norm"], da["k_norm"]),
+                     cfg.norm_eps)
+    heads = torch.tensor(_kv_heads(cfg.num_heads, cfg.num_kv_heads, ax.n,
+                                   ax.index), device=x.device)
+    q = spec_rope(q, torch.arange(q.shape[1], device=x.device), asp)
+    k = spec_rope(k, torch.arange(k.shape[1], device=x.device), asp)
+    k, v = (tp_mod.copy_to(ax, t.float()).index_select(2, heads)
+            for t in (k, v))
+    return chunked_attention(q, k, v, asp._replace(
+        num_heads=q.shape[2], num_kv_heads=k.shape[2], use_rope=False))
 
 
 def _ffn_tp(cfg: ModelConfig, spec: LayerSpec, tp, p, x):
@@ -463,6 +499,8 @@ def _ffn_tp(cfg: ModelConfig, spec: LayerSpec, tp, p, x):
                             moe_spec(cfg))
         y = y.reshape(B, S, D)
         return (y if bax is None else tp_mod.own_block(bax, y, 0)), aux
+    if cfg.norm == "ln":
+        return dense_mlp_tp(ltp, p["ffn"], x, act=cfg.mlp_act), 0.0
     return gated_mlp_tp(ltp, p["ffn"], x, act=cfg.mlp_act), 0.0
 
 
@@ -475,75 +513,329 @@ def _out_tp(tp, pa, da, o, local: bool):
     return tp_mod.to_full(tp.axis, y, split)
 
 
+def _mla_train_tp(cfg: ModelConfig, spec: LayerSpec, tp, pa, da, x):
+    """:func:`_attn_block_train` of an MLA layer on this rank's heads:
+    ``wq_a`` / ``wkv_a`` by their plan dims (the q latent normed over the
+    axis where its columns are split; the KV latent and the shared rope
+    key gathered), then this rank's heads of ``wq_b`` and ``wkv_b``'s
+    products, the attention, and ``wo`` row-parallel."""
+    ax, m = tp.axis, cfg.mla
+    B, S = x.shape[:2]
+    Hn = cfg.num_heads // ax.n
+    dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    cq, cs = tp_mod.linear(ax, x, pa["wq_a"], da["wq_a"])
+    if cs:
+        cq = tp_mod.rms_norm_split(
+            ax, cq, tp_mod.local_part(ax, pa["q_norm"], da["q_norm"], 0),
+            m.q_lora, cfg.norm_eps)
+    else:
+        cq = rms_norm(cq, tp_mod.full(ax, pa["q_norm"], da["q_norm"]),
+                      cfg.norm_eps)
+    q, qs = tp_mod.linear(ax, cq, pa["wq_b"], da["wq_b"], x_split=cs)
+    q = tp_mod.to_split(ax, q, qs).reshape(B, S, Hn, dn + dr)
+    kv_in, ks = tp_mod.linear(ax, x, pa["wkv_a"], da["wkv_a"])
+    kv_in = tp_mod.to_full(ax, kv_in, ks)
+    ckv = rms_norm(kv_in[..., :m.kv_lora],
+                   tp_mod.full(ax, pa["kv_norm"], da["kv_norm"]),
+                   cfg.norm_eps)
+    # the shared rope key enters every local head in float32, so that its
+    # gradient's parts are added over the heads and the axis unrounded
+    k_rope = tp_mod.copy_to(ax, kv_in[..., m.kv_lora:].float())
+    kvb, kbs = tp_mod.linear(ax, ckv, pa["wkv_b"], da["wkv_b"])
+    kvb = tp_mod.to_split(ax, kvb, kbs).reshape(B, S, Hn, dn + dv)
+    k = torch.cat([kvb[..., :dn].float(),
+                   k_rope[:, :, None].expand(B, S, Hn, dr)],
+                  dim=-1).to(kvb.dtype)
+    hd = dn + dr
+    asp = attn_spec(cfg, spec)._replace(num_heads=Hn, num_kv_heads=Hn,
+                                        head_dim=hd, scale=hd ** -0.5,
+                                        rope_dims=dr)
+    v = torch.nn.functional.pad(kvb[..., dn:], (0, hd - dv))
+    o = chunked_attention(q, k, v, asp)[..., :dv]
+    return _out_tp(tp, pa, da, o, True)
+
+
+def _gqa_tp(cfg: ModelConfig, tp, pa, da, x, kv_x, asp: AttnSpec):
+    """GQA attention of the training forward, self (``kv_x`` is x) or
+    cross (``kv_x`` the encoder output), on this rank's query heads (and
+    the KV heads they read), or replicated on the gathered leaves where the
+    query heads do not split over the axis -> replicated (B, S, D)."""
+    ax, B, S = tp.axis, x.shape[0], x.shape[1]
+    if cfg.num_heads % ax.n:
+        pa = tp_mod.full_tree(ax, pa, da)
+        o = chunked_attention(_gqa_q(cfg, pa, x), *_gqa_kv(cfg, pa, kv_x),
+                              asp)
+        return o.reshape(B, S, -1) @ pa["wo"]
+    if cfg.num_kv_heads % ax.n:
+        o = _uneven_attention(cfg, tp, pa, da, x, kv_x, asp)
+    else:
+        q, k, v = _gqa_project_tp(cfg, tp, pa, da, x, local=True, kv_x=kv_x)
+        o = chunked_attention(q, k, v, asp._replace(
+            num_heads=q.shape[2], num_kv_heads=k.shape[2]))
+    return _out_tp(tp, pa, da, o, True)
+
+
+def _attn_tp(cfg: ModelConfig, spec: LayerSpec, tp, p, x):
+    """The attention block of the training forward under a model axis
+    -> replicated (B, S, D)."""
+    if not cfg.mla:
+        return _gqa_tp(cfg, tp, p["attn"], tp.dims["attn"], x, x,
+                       attn_spec(cfg, spec))
+    return _mla_train_tp(cfg, spec, tp, p["attn"], tp.dims["attn"], x)
+
+
 def apply_layer_train_tp(cfg: ModelConfig, spec: LayerSpec, p, x,
-                         tp: "tp_mod.LayerTP"):
-    """:func:`apply_layer_train` under a model axis: x (B, S, D)
-    replicated -> (x', aux), with head-parallel attention."""
-    check_tp_layer(cfg, spec, tp.axis.n)
-    pa, da = p["attn"], tp.dims["attn"]
-    q, k, v = _gqa_project_tp(cfg, tp, pa, da, _norm_tp(cfg, tp, p, "norm1",
-                                                         x), local=True)
-    n = tp.axis.n
-    asp = attn_spec(cfg, spec)._replace(num_heads=cfg.num_heads // n,
-                                        num_kv_heads=cfg.num_kv_heads // n)
-    h = x + _out_tp(tp, pa, da, chunked_attention(q, k, v, asp), True)
+                         tp: "tp_mod.LayerTP", enc_out=None):
+    """:func:`apply_layer_train` under a model axis: x (B, S, D) (and
+    ``enc_out``) replicated -> (x', aux)."""
+    check_ported_layer(cfg, spec)
+    if spec.kind == "mamba":
+        return x + ssm_mod.mamba_forward_tp(
+            tp, p, _norm_tp(cfg, tp, p, "norm", x), mamba_spec(cfg)), 0.0
+    if spec.kind == "rwkv":
+        tm = rwkv_mod.time_mix_tp(tp, p, _norm_tp(cfg, tp, p, "norm1", x),
+                                  rwkv_spec(cfg))
+        xn = _norm_of_sum(cfg, _norm_leaves(tp, p, "norm2"), x, tm)
+        return x + tm + rwkv_mod.channel_mix_tp(tp, p, xn,
+                                                rwkv_mod._shift(xn)), 0.0
+    h = x + _attn_tp(cfg, spec, tp, p, _norm_tp(cfg, tp, p, "norm1", x))
+    if spec.cross_attn:
+        h = h + _gqa_tp(cfg, tp, p["xattn"], tp.dims["xattn"],
+                        _norm_tp(cfg, tp, p, "norm_x", h), enc_out,
+                        _cross_spec(cfg, spec))
     y, aux = _ffn_tp(cfg, spec, tp, p, _norm_tp(cfg, tp, p, "norm2", h))
     return h + y, aux
 
 
 class CacheShard(NamedTuple):
     """How a layer's cache is split in the sharded serve step: ``seq`` the
-    axis over which its slots are split (size 1: every slot here), ``pos``
-    the axis over which its slot-position table is split."""
+    axis over which its attention slots are split (size 1: every slot
+    here), ``pos`` the axis over which its slot-position table is split,
+    ``leaves`` each cache leaf's axis over which its dim after the batch
+    (slots, frames, channels or heads) is split."""
 
-    seq: "tp_mod.Axis"
     pos: "tp_mod.Axis"
+    leaves: dict
+
+    @property
+    def seq(self) -> "tp_mod.Axis":
+        """The axis over which the attention slots (``k`` or MLA's
+        ``ckv``) are split."""
+        return self.leaves.get("k", self.leaves.get("ckv"))
 
 
-def apply_layer_cached_tp(cfg: ModelConfig, spec: LayerSpec, p, x,
-                          cache: dict, start: int, tp: "tp_mod.LayerTP",
-                          shard: CacheShard):
-    """The dense decode (T = 1) and chunked prefill of a GQA layer over a
-    sharded cache: x (B, T, D) at positions start..start+T-1, the cache
-    this rank's block of batch rows and slots. The new K/V go to ring
-    slot ``pos % C``, written by the rank whose block holds it; the
-    slot-position table is gathered where it is split (and its block
-    written back); the attention is split over the slots and combined
-    (:func:`split_attention`)."""
-    check_tp_layer(cfg, spec, tp.axis.n)
+def _leaf_full(shard: CacheShard, name: str, t):
+    """A cache leaf whole along its dim after the batch."""
+    return tp_mod.gather_dim(shard.leaves[name], t, 1)
+
+
+def _leaf_block(tp, shard: CacheShard, name: str, t):
+    """This model rank's block of a cache leaf along its dim after the
+    batch (as stored where the plan splits it over the model axis)."""
+    ax = shard.leaves[name]
+    if ax is tp.axis:
+        return t
+    return tp_mod.own_block(tp.axis, tp_mod.gather_dim(ax, t, 1), 1)
+
+
+def _store_full(shard: CacheShard, name: str, t, new):
+    """Write the stored block of a whole new state leaf."""
+    t.copy_(tp_mod.own_block(shard.leaves[name], new, 1))
+
+
+def _store_block(tp, shard: CacheShard, name: str, t, new):
+    """Write the stored block of a leaf given this model rank's block."""
+    ax = shard.leaves[name]
+    if ax is not tp.axis:
+        new = tp_mod.own_block(ax, tp_mod.gather_dim(tp.axis, new, 1), 1)
+    t.copy_(new)
+
+
+def _ring_write(shard: CacheShard, cache: dict, rows: dict, start: int):
+    """Write the new rows (each (B, T, ...)) at ring slots ``pos % C`` of
+    the cache leaves they name, from absolute position ``start``: each
+    slot by the rank whose block holds it, the slot-position table
+    gathered where it is split (and its block written back) -> the
+    positions held in this rank's slots."""
+    T = next(iter(rows.values())).shape[1]
+    dev = cache["pos"].device
+    qpos = start + torch.arange(T, dtype=torch.int32, device=dev)
+    sq = shard.seq
+    C_loc = cache[next(iter(rows))].shape[1]
+    C, lo = C_loc * sq.n, sq.index * C_loc
+    slots = [(start + t) % C for t in range(T)]
+    pos_full = tp_mod.gather_dim(shard.pos, cache["pos"], 0)
+    pos_full[torch.tensor(slots, device=dev)] = qpos
+    if shard.pos.n > 1:
+        cache["pos"].copy_(tp_mod.own_block(shard.pos, pos_full, 0))
+    mine = [t for t, s in enumerate(slots) if lo <= s < lo + C_loc]
+    if mine:
+        at = torch.tensor([slots[t] - lo for t in mine], device=dev)
+        sel = torch.tensor(mine, device=dev)
+        for name, r in rows.items():
+            cache[name][:, at] = r[:, sel].to(cache[name].dtype)
+    return pos_full[lo:lo + C_loc]
+
+
+def _gqa_cached_tp(cfg: ModelConfig, spec: LayerSpec, tp, shard, p, x,
+                   cache: dict, start: int):
+    """Self-attention of the cached paths over slot-split K/V -> the
+    residual stream h."""
     B, T = x.shape[:2]
     asp = attn_spec(cfg, spec)
     pa, da = p["attn"], tp.dims["attn"]
     q, k, v = _gqa_project_tp(cfg, tp, pa, da, _norm_tp(cfg, tp, p, "norm1",
                                                          x), local=False)
-    qpos = start + torch.arange(T, dtype=torch.int32, device=x.device)
-    posv = qpos[None].expand(B, T)
+    posv = (start + torch.arange(T, dtype=torch.int32,
+                                 device=x.device))[None].expand(B, T)
     q = apply_rope(q, posv, asp.rope_theta)
     k = apply_rope(k, posv, asp.rope_theta)
-    sq = shard.seq
-    C_loc = cache["k"].shape[1]
-    C, lo = C_loc * sq.n, sq.index * C_loc
-    slots = [(start + t) % C for t in range(T)]
-    pos_full = tp_mod.gather_dim(shard.pos, cache["pos"], 0)
-    pos_full[torch.tensor(slots, device=x.device)] = qpos
-    if shard.pos.n > 1:
-        cache["pos"].copy_(tp_mod.own_block(shard.pos, pos_full, 0))
-    mine = [t for t, s in enumerate(slots) if lo <= s < lo + C_loc]
-    if mine:
-        at = torch.tensor([slots[t] - lo for t in mine], device=x.device)
-        sel = torch.tensor(mine, device=x.device)
-        cache["k"][:, at] = k[:, sel].to(cache["k"].dtype)
-        cache["v"][:, at] = v[:, sel].to(cache["v"].dtype)
-    posa = pos_full[lo:lo + C_loc]
+    posa = _ring_write(shard, cache, {"k": k, "v": v}, start)
     mask = ((posa >= 0)[None, None, :]
             & (posa[None, None, :] <= posv[:, :, None]))     # (B, T, C_loc)
     if spec.kind == "attn_local" and cfg.window:
         mask &= (posv[:, :, None] - posa[None, None, :]) < cfg.window
-    if sq.n > 1:
-        o = split_attention(q, cache["k"], cache["v"], mask, asp, sq)
+    if shard.seq.n > 1:
+        o = split_attention(q, cache["k"], cache["v"], mask, asp, shard.seq)
     else:
         o = masked_decode_attention(q, cache["k"], cache["v"], mask, asp)
-    h = x + _out_tp(tp, pa, da, o, False)
+    return x + _out_tp(tp, pa, da, o, False)
+
+
+def _cross_cached_tp(cfg: ModelConfig, spec: LayerSpec, tp, shard, p, h,
+                     cache: dict):
+    """Cross-attention of the cached paths over this rank's block of the
+    encoder's frames (``xk`` / ``xv`` as the serve plan splits them),
+    every head, the partials combined over the frames' axis."""
+    ax, B, T = tp.axis, h.shape[0], h.shape[1]
+    pa, da = p["xattn"], tp.dims["xattn"]
+    q = _heads_tp(ax, _norm_tp(cfg, tp, p, "norm_x", h), pa, da, "wq", "bq",
+                  cfg.num_heads, cfg.resolved_head_dim, False)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp_mod.full(ax, pa["q_norm"], da["q_norm"]),
+                     cfg.norm_eps)
+    xk, xv = cache["xk"], cache["xv"]
+    mask = torch.ones((B, T, xk.shape[1]), dtype=torch.bool, device=h.device)
+    xsp, fax = _cross_spec(cfg, spec), shard.leaves["xk"]
+    if fax.n > 1:
+        o = split_attention(q, xk, xv, mask, xsp, fax)
+    else:
+        o = masked_decode_attention(q, xk, xv, mask, xsp)
+    return _out_tp(tp, pa, da, o, False)
+
+
+def cross_kv_tp(cfg: ModelConfig, tp, pa, da, enc_out, frames):
+    """Whisper's cross K/V of the encoder output's frames in the block
+    ``frames`` (an :class:`~repro_torch.models.tp.Axis` of the frame
+    split) from the gathered ``wk`` / ``wv`` (and their biases and norm):
+    each rank projects its own frames, as ``_gqa_kv`` does."""
+    names = [n for n in ("wk", "wv", "bk", "bv", "k_norm") if n in pa]
+    full = {n: tp_mod.full(tp.axis, pa[n], da[n]) for n in names}
+    return _gqa_kv(cfg, full, tp_mod.own_block(frames, enc_out, 1))
+
+
+def _mla_cached_tp(cfg: ModelConfig, tp, shard, p, x, cache: dict,
+                   pos: int):
+    """:func:`_mla_decode` over a slot-split latent cache: the new token's
+    latent written by the rank holding its slot; q_nope absorbed through
+    this rank's heads of ``wkv_b`` and gathered to every head; each rank
+    scores its slots for every head, the partials combined as in
+    ``split_attention``; the attended latent expanded through this rank's
+    heads of W_uv and ``wo`` row-parallel."""
+    m, ax = cfg.mla, tp.axis
+    B = x.shape[0]
+    H, dn, dr, dv, dc = (cfg.num_heads, m.nope_head_dim, m.rope_head_dim,
+                         m.v_head_dim, m.kv_lora)
+    f32 = torch.float32
+    pa, da = p["attn"], tp.dims["attn"]
+
+    def rep(name, v):
+        y, split = tp_mod.linear(ax, v, pa[name], da[name])
+        return tp_mod.to_full(ax, y, split)
+
+    def full(name):
+        return tp_mod.full(ax, pa[name], da[name])
+
+    xn = _norm_tp(cfg, tp, p, "norm1", x)
+    cq = rms_norm(rep("wq_a", xn), full("q_norm"), cfg.norm_eps)
+    q = rep("wq_b", cq).reshape(B, 1, H, dn + dr)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q[..., dn:], posv, cfg.rope_theta)
+    kv_in = rep("wkv_a", xn[:, 0])                       # (B, dc + dr)
+    ckv_t = rms_norm(kv_in[..., :dc], full("kv_norm"), cfg.norm_eps)
+    kr_t = apply_rope(kv_in[..., dc:][:, None, None, :], posv,
+                      cfg.rope_theta)[:, 0, 0]
+    posa = _ring_write(shard, cache, {"ckv": ckv_t[:, None],
+                                      "kr": kr_t[:, None]}, pos)
+    Hn = H // ax.n
+    h0 = ax.index * Hn
+    wkv_b = tp_mod.local_part(ax, pa["wkv_b"], da["wkv_b"], 1).reshape(
+        dc, Hn, dn + dv).to(f32)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_eff = tp_mod.gather_dim(ax, torch.einsum(
+        "bqhd,chd->bqhc", q[:, :, h0:h0 + Hn, :dn].to(f32), w_uk),
+        2)                                               # every head
+    ckv, kr = cache["ckv"].to(f32), cache["kr"].to(f32)  # this rank's slots
+    s = (torch.einsum("bqhc,bkc->bhqk", q_eff, ckv)
+         + torch.einsum("bqhr,bkr->bhqk", q_rope.to(f32), kr))
+    s = s * ((dn + dr) ** -0.5)
+    valid = (posa >= 0)[None, None, None, :]
+    if shard.seq.n > 1:
+        mx, w = split_softmax(s, valid)
+        att_c = combine_split(shard.seq, mx, w.sum(dim=-1),
+                              torch.einsum("bhqk,bkc->bqhc", w, ckv))
+    else:
+        w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+        att_c = torch.einsum("bhqk,bkc->bqhc", w, ckv)
+    o = torch.einsum("bqhc,chd->bqhd", att_c[:, :, h0:h0 + Hn], w_uv)
+    return x + _out_tp(tp, pa, da, o.to(x.dtype), True)
+
+
+def _mamba_cached_tp(cfg: ModelConfig, tp, shard, p, x, cache: dict):
+    y, st = ssm_mod.mamba_decode_step_tp(
+        tp, p, _norm_tp(cfg, tp, p, "norm", x),
+        _leaf_full(shard, "conv", cache["conv"]),
+        _leaf_block(tp, shard, "ssm", cache["ssm"]), mamba_spec(cfg))
+    _store_full(shard, "conv", cache["conv"], st["conv"])
+    _store_block(tp, shard, "ssm", cache["ssm"], st["ssm"])
+    return x + y
+
+
+def _rwkv_cached_tp(cfg: ModelConfig, tp, shard, p, x, cache: dict):
+    xn = _norm_tp(cfg, tp, p, "norm1", x)
+    tm, wkv = rwkv_mod.time_mix_decode_tp(
+        tp, p, xn, _leaf_block(tp, shard, "wkv", cache["wkv"]),
+        _leaf_full(shard, "tm_shift", cache["tm_shift"]), rwkv_spec(cfg))
+    xn2 = _norm_of_sum(cfg, _norm_leaves(tp, p, "norm2"), x, tm)
+    cm = rwkv_mod.channel_mix_tp(tp, p, xn2, _leaf_full(
+        shard, "cm_shift", cache["cm_shift"])[:, None])
+    _store_block(tp, shard, "wkv", cache["wkv"], wkv)
+    _store_full(shard, "tm_shift", cache["tm_shift"], xn[:, 0])
+    _store_full(shard, "cm_shift", cache["cm_shift"], xn2[:, 0])
+    return x + tm + cm
+
+
+def apply_layer_cached_tp(cfg: ModelConfig, spec: LayerSpec, p, x,
+                          cache: dict, start: int, tp: "tp_mod.LayerTP",
+                          shard: CacheShard):
+    """The dense decode (T = 1) and chunked prefill of a layer over a
+    sharded cache: x (B, T, D) at positions start..start+T-1, the cache
+    this rank's block of batch rows and of each leaf's split dim (MLA,
+    Mamba and RWKV decode one token at a time). Attention writes the new
+    K/V (or latent) at ring slot ``pos % C`` by the rank whose block holds
+    it and attends over its slots, the partials combined over the slots'
+    axis; a recurrent layer writes its new state by the plan's split of
+    each leaf."""
+    check_ported_layer(cfg, spec)
+    if spec.kind in ("mamba", "rwkv"):
+        fn = _mamba_cached_tp if spec.kind == "mamba" else _rwkv_cached_tp
+        return fn(cfg, tp, shard, p, x, cache), cache
+    if cfg.mla:
+        h = _mla_cached_tp(cfg, tp, shard, p, x, cache, start)
+    else:
+        h = _gqa_cached_tp(cfg, spec, tp, shard, p, x, cache, start)
+        if spec.cross_attn:
+            h = h + _cross_cached_tp(cfg, spec, tp, shard, p, h, cache)
     y, _ = _ffn_tp(cfg, spec, tp, p, _norm_tp(cfg, tp, p, "norm2", h))
     return h + y, cache
 

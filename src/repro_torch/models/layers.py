@@ -134,19 +134,34 @@ def dense_mlp(p, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
     return h @ p["wo"] + p["bo"]
 
 
+def dense_mlp_tp(tp: "tp_mod.LayerTP", p, x: torch.Tensor, *,
+                 act: str = "gelu") -> torch.Tensor:
+    """:func:`dense_mlp` on the local blocks of its leaves: ``wi`` and
+    ``wo`` by the dims their leaves are split on, each bias taken to the
+    block of the product it is added to, the output replicated."""
+    ax, d = tp.axis, tp.dims
+    h, hs = tp_mod.linear(ax, x, p["wi"], d["wi"])
+    bi = (tp_mod.local_part(ax, p["bi"], d["bi"], 0) if hs
+          else tp_mod.full(ax, p["bi"], d["bi"]))
+    h = {"gelu": gelu, "silu": silu, "relu": F.relu}[act](h + bi)
+    y, ys = tp_mod.linear(ax, h, p["wo"], d["wo"], x_split=hs)
+    return tp_mod.to_full(ax, y, ys) + tp_mod.full(ax, p["bo"], d["bo"])
+
+
 # ---------------------------------------------------------------------------
 # init helpers (the port's own init; weights from a torch.Generator)
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
-               in_axis: int = 0) -> torch.Tensor:
-    """Drawn on ``gen``'s device; ``gen=None`` gives a ``meta`` tensor:
-    the shape, no values."""
+               in_axis: int = 0, scale: float = 1.0) -> torch.Tensor:
+    """Drawn on ``gen``'s device, then times ``scale``; ``gen=None`` gives
+    a ``meta`` tensor: the shape, no values."""
     if gen is None:
         return torch.empty(tuple(shape), device="meta")
     fan_in = shape[in_axis]
-    return torch.randn(tuple(shape), generator=gen,
-                       device=gen.device) / math.sqrt(fan_in)
+    w = torch.randn(tuple(shape), generator=gen,
+                    device=gen.device) / math.sqrt(fan_in)
+    return w if scale == 1.0 else w * scale
 
 
 def embed_init(gen: Optional[torch.Generator],

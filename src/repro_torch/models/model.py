@@ -22,12 +22,12 @@ reference's ``cfg.remat`` (rematerialise each layer group in the
 backward) changes no value, and the port ignores it: at the ported
 sizes the activations fit.
 
-Under a sharded mesh the forward, the loss and the cached decode take a
-``tp`` (:class:`~repro_torch.models.tp.ModelTP`): the params are this
-rank's blocks by the plan, the embedding, the head and every layer run
-on them (``blocks.apply_layer_train_tp`` / ``apply_layer_cached_tp``),
-and the logits are gathered over V before the loss or the caller sees
-them.
+Under a sharded mesh the forward, the loss, the encoder, ``warm_cache``
+and the cached decode take a ``tp``
+(:class:`~repro_torch.models.tp.ModelTP`): the params are this rank's
+blocks by the plan, the embedding, the head and every layer run on them
+(``blocks.apply_layer_train_tp`` / ``apply_layer_cached_tp``), and the
+logits are gathered over V before the loss or the caller sees them.
 """
 from __future__ import annotations
 
@@ -45,8 +45,10 @@ from repro_torch.models.blocks import (LayerSpec, _gqa_kv,
                                       apply_layer_decode,
                                       apply_layer_prefill_chunk,
                                       apply_layer_train,
-                                      apply_layer_train_tp, check_tp_layer,
-                                      init_layer, init_layer_cache)
+                                      apply_layer_train_tp,
+                                      check_ported_layer, cross_kv_tp,
+                                      init_layer, init_layer_cache,
+                                      mamba_spec, rwkv_spec)
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        rms_norm, softcap)
 
@@ -90,6 +92,9 @@ def _stack(trees):
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if first.device.type == "meta":      # shapes only: no meta kernel runs
+        return torch.empty((len(trees),) + tuple(first.shape),
+                           dtype=first.dtype, device="meta")
     return torch.stack(trees)
 
 
@@ -256,11 +261,37 @@ class LM:
             lambda p, t: tp.dims.get(p), _named(prefix, unit), unit),
             tp.batch)
 
+    @staticmethod
+    def _full_named(tp, tree, prefix: str):
+        """A tree of leaves stored as their blocks under the paths
+        ``prefix + keystr``, gathered whole."""
+        return tp_mod.full_tree(tp.axis, tree, _map_with(
+            lambda p, t: tp.dims.get(p), _named(prefix, tree), tree))
+
     def check_tp(self, n_model: int) -> None:
         """Refuse, before any compute, a model with a layer the sharded
-        paths do not compute (ROADMAP.md)."""
-        for spec in self.specs:
-            check_tp_layer(self.cfg, spec, n_model)
+        paths do not compute over ``n_model`` model ranks: Mamba channels,
+        RWKV-6 heads, MLA heads or experts that do not split over them
+        (GQA heads that do not split run replicated)."""
+        pairs = [(self.cfg, s) for s in self.specs]
+        if self.cfg.encoder:
+            pairs += [(self.enc_cfg, s) for s in self.enc_specs]
+        for cfg, spec in pairs:
+            check_ported_layer(cfg, spec)
+            split = []
+            if spec.kind == "mamba":
+                split.append(("Mamba channels", mamba_spec(cfg).d_inner))
+            elif spec.kind == "rwkv":
+                split.append(("RWKV-6 heads", rwkv_spec(cfg).num_heads))
+            elif cfg.mla:
+                split.append(("MLA heads", cfg.num_heads))
+            if spec.moe:
+                split.append(("experts", cfg.moe.num_experts))
+            for what, n in split:
+                if n % n_model:
+                    raise NotImplementedError(
+                        f"{n} {what} do not split over {n_model} model "
+                        f"ranks; not ported (see ROADMAP.md)")
 
     # ------------------------------------------------------------------
     # training forward
@@ -288,22 +319,28 @@ class LM:
                     else:
                         x, a = apply_layer_train_tp(
                             cfg, spec, pj, x, self._layer_tp(
-                                tp, f"{prefix}g{gi}/pos{j}", unit))
+                                tp, f"{prefix}g{gi}/pos{j}", unit),
+                            enc_out=enc_out)
                     aux = aux + a
         return x, aux
 
-    def encode(self, params, enc_embeds: torch.Tensor, gather=None):
+    def encode(self, params, enc_embeds: torch.Tensor, gather=None, *,
+               tp=None):
         """Frame embeddings (B, frames, D) -> the encoder's final-normed
         output (B, frames, D) bf16: ``pos_embed`` added in bf16, the
         non-causal attention layers, the final layer norm. ``pos_embed``
-        and ``final_norm`` are gathered under ``"enc/"`` with salt 0."""
+        and ``final_norm`` are gathered under ``"enc/"`` with salt 0.
+        ``tp``: this rank's blocks under a model axis (head-parallel
+        layers; the output replicated)."""
         enc = params["encoder"]
         ep = self._gather_tree({"pos_embed": enc["pos_embed"],
                                 "final_norm": enc["final_norm"]},
                                gather, "enc/", 0)
+        if tp is not None:
+            ep = self._full_named(tp, ep, "enc/")
         x = enc_embeds.to(torch.bfloat16) + ep["pos_embed"][None]
         x, _ = self._run_groups(self.enc_cfg, self.enc_groups, enc["groups"],
-                                x, gather, prefix="enc/")
+                                x, gather, prefix="enc/", tp=tp)
         return self._final_norm(ep["final_norm"], x)
 
     def hidden_states(self, params, tokens: torch.Tensor, gather=None,
@@ -323,13 +360,13 @@ class LM:
         if tp is not None:
             self.check_tp(tp.axis.n)
         x = self._embed(params, tokens, gather, tp)
-        enc_out = (self.encode(params, enc_embeds, gather) if cfg.encoder
-                   else None)
+        enc_out = (self.encode(params, enc_embeds, gather, tp=tp)
+                   if cfg.encoder else None)
         x, aux = self._run_groups(cfg, self.groups, params["groups"], x,
                                   gather, enc_out=enc_out, tp=tp)
         fp = self._gather_tree(params["final_norm"], gather, "final_norm", 0)
         if tp is not None:
-            fp = tp_mod.full(tp.axis, fp, tp.dims.get("final_norm"))
+            fp = self._full_named(tp, fp, "final_norm")
         return self._final_norm(fp, x), aux
 
     def logits(self, params, tokens: torch.Tensor, gather=None,
@@ -389,7 +426,7 @@ class LM:
             for j, spec in enumerate(g.unit):
                 one = init_layer_cache(self.cfg, spec, batch, max_len, dtype,
                                        device=device, enc_frames=frames)
-                gc[f"pos{j}"] = {k: torch.stack([t] * g.repeats)
+                gc[f"pos{j}"] = {k: _stack([t] * g.repeats)
                                  for k, t in one.items()}
             caches.append(gc)
         return tuple(caches)
@@ -433,30 +470,40 @@ class LM:
                             cj[k].copy_(t)
         fp = self._cast_tree(params["final_norm"])
         if tp is not None:
-            fp = tp_mod.full(tp.axis, fp, tp.dims.get("final_norm"))
+            fp = self._full_named(tp, fp, "final_norm")
         x = self._final_norm(fp, x)
         lg = self._project(x, self._head(params).to(x.dtype), tp)
         return softcap(lg, self.cfg.final_softcap)
 
     @torch.no_grad()
     def warm_cache(self, params, cache, enc_embeds: torch.Tensor,
-                   gather=None):
+                   gather=None, *, tp=None):
         """Whisper's cross-attention K/V of every decoder layer from the
         encoder's output on ``enc_embeds``, written into ``cache`` in the
         cache's type (in place; returned). As in the reference, the
         projection multiplies the bf16 encoder output by the layer's
-        weights as they are (float32 weights: a float32 product)."""
+        weights as they are (float32 weights: a float32 product). ``tp``:
+        this rank's blocks of params and cache in the sharded serve step;
+        each rank writes its block of the frames of ``xk`` / ``xv``."""
         if not self.cfg.encoder:
             return cache
-        enc_out = self.encode(params, enc_embeds, gather)
-        for g, gp, gc in zip(self.groups, params["groups"], cache):
+        enc_out = self.encode(params, enc_embeds, gather, tp=tp)
+        for gi, (g, gp, gc) in enumerate(zip(self.groups, params["groups"],
+                                             cache)):
             for j, spec in enumerate(g.unit):
                 if not spec.cross_attn:
                     continue
                 xp, cj = gp[f"pos{j}"]["xattn"], gc[f"pos{j}"]
+                ltp = (None if tp is None else self._layer_tp(
+                    tp, f"g{gi}/pos{j}", gp[f"pos{j}"]))
                 for r in range(g.repeats):
-                    k, v = _gqa_kv(self.cfg, {n: t[r] for n, t in xp.items()},
-                                   enc_out)
+                    pr = {n: t[r] for n, t in xp.items()}
+                    if ltp is None:
+                        k, v = _gqa_kv(self.cfg, pr, enc_out)
+                    else:
+                        k, v = cross_kv_tp(
+                            self.cfg, ltp, pr, ltp.dims["xattn"], enc_out,
+                            tp.cache[gi][f"pos{j}"].leaves["xk"])
                     cj["xk"][r].copy_(k)
                     cj["xv"][r].copy_(v)
         return cache

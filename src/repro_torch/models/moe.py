@@ -133,40 +133,48 @@ def moe_ffn_tp(tp: "tp_mod.LayerTP", p, x: torch.Tensor, spec: MoESpec):
     float32 softmax and the stable top-k, so every rank routes alike; each
     rank dispatches the slots of its own experts, runs them, and weights
     their outputs; the partial outputs are added in float32 over the axis
-    and rounded once. The expert weights must be split on their expert
-    dim."""
+    and rounded once. An expert leaf that the plan splits on another dim
+    is taken to this rank's expert block (``tp.local_part``); the experts
+    split over the axis (``LM.check_tp``)."""
     ax, d = tp.axis, tp.dims
-    if any(d[n] not in (None, 0) for n in ("wg", "wu", "wo")) or len(
-            {d[n] for n in ("wg", "wu", "wo")}) > 1:
-        tp_mod.refuse("an MoE layer whose experts are not split on their "
-                      "expert dim")
     T, D = x.shape
     E, k = spec.num_experts, spec.top_k
     lg, split = tp_mod.linear(ax, x.to(torch.float32),
                               p["router"].to(torch.float32), d["router"])
     r = _route(tp_mod.to_full(ax, lg, split), spec)
     C = r.capacity
-    E_loc = p["wg"].shape[0]
-    e0 = ax.index * E_loc if d["wg"] == 0 else 0
+    local = ax.n > 1
+
+    def experts(name):
+        if local:
+            return tp_mod.local_part(ax, p[name], d[name], 0)
+        return tp_mod.full(ax, p[name], d[name])
+
+    wg, wu, wo = experts("wg"), experts("wu"), experts("wo")
+    E_loc = wg.shape[0]
+    e0 = ax.index * E_loc if local else 0
     flat_e = r.topi.reshape(-1)
     mine = r.keep & (flat_e >= e0) & (flat_e < e0 + E_loc)
     dest = torch.where(mine, (flat_e - e0) * C + r.pos,
                        torch.full_like(flat_e, E_loc * C))
-    xc = tp_mod.copy_to(ax, x) if d["wg"] == 0 else x
+    # the rows are dispatched in float32 (exact copies of x), so that the
+    # parts of dx are added over the slots and the axis unrounded
+    xc = tp_mod.copy_to(ax, x.float()) if local else x
     x_rep = torch.repeat_interleave(xc, k, dim=0)
-    buf = torch.zeros((E_loc * C + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, dest, x_rep)[:E_loc * C].reshape(E_loc, C, D)
-    g = torch.bmm(buf, p["wg"])
-    u = torch.bmm(buf, p["wu"])
+    buf = torch.zeros((E_loc * C + 1, D), dtype=xc.dtype, device=x.device)
+    buf = buf.index_add(0, dest, x_rep)[:E_loc * C].reshape(
+        E_loc, C, D).to(x.dtype)
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
     h = (_ACTS[spec.act](g.to(torch.float32))
          * u.to(torch.float32)).to(x.dtype)
-    out = torch.bmm(h, p["wo"]).reshape(E_loc * C, D)
+    out = torch.bmm(h, wo).reshape(E_loc * C, D)
     safe = torch.where(mine, dest, torch.zeros_like(dest))
     tok_out = out[safe] * mine[:, None].to(x.dtype)
-    topw = tp_mod.copy_to(ax, r.topw) if d["wg"] == 0 else r.topw
+    topw = tp_mod.copy_to(ax, r.topw) if local else r.topw
     w = topw.reshape(-1)[:, None].to(x.dtype)
     y = (tok_out * w).reshape(T, k, D).to(torch.float32).sum(dim=1)
-    y = (tp_mod.reduce_from(ax, y) if d["wg"] == 0 else y).to(x.dtype)
+    y = (tp_mod.reduce_from(ax, y) if local else y).to(x.dtype)
     if spec.num_shared > 0:
         y = y + gated_mlp_tp(tp_mod.LayerTP(ax, {
             "wi_gate": d["shared_wg"], "wi_up": d["shared_wu"],

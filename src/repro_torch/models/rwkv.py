@@ -13,6 +13,15 @@ The train path evaluates it chunk by chunk (the chunked form of
 is the same function at one token, with the (H, hd, hd) float32 state
 and the last normed token of each mix carried. The channel mix is the
 squared-ReLU FFN with token shift.
+
+Under a model axis (``time_mix_tp``, ``channel_mix_tp`` and their
+decodes) the WKV recurrence and the group norm run on this rank's heads:
+r / k / v / g and the decay come to this rank's channels (``wr`` ... by
+``tp.linear`` at the dims the plan split them on), the small LoRA mixes
+(``tm_w1``, ``tm_w2``, ``dec_w1``, ``dec_w2``) are computed replicated on
+gathered leaves, and ``wo`` / ``cv`` add their partial products over the
+axis. The WKV state holds this rank's heads; the token-shift inputs are
+whole.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.layers import sigmoid, silu
 
 
@@ -181,6 +191,79 @@ def channel_mix_decode(p, x, state):
     """x (B, 1, D); state {shift (B, D)}."""
     out = channel_mix(p, x, state["shift"][:, None])
     return out, {"shift": x[:, 0]}
+
+
+# ---------------------------------------------------------------------------
+# head-parallel (under a model axis)
+# ---------------------------------------------------------------------------
+
+def _cols_tp(tp, p, x, name):
+    """x (replicated) @ p[name] -> this rank's block of its columns."""
+    y, split = tp_mod.linear(tp.axis, x, p[name], tp.dims[name])
+    return tp_mod.to_split(tp.axis, y, split)
+
+
+def _time_mix_core_tp(tp, p, x, x_prev, spec: RWKVSpec, s0):
+    """:func:`_time_mix_core` on this rank's heads (``tp`` a ``LayerTP``,
+    the heads divisible by its axis size): x,
+    x_prev (B, S, D) replicated, s0 this rank's heads' state -> (out (B,
+    S, D) replicated, this rank's new state)."""
+    ax, d = tp.axis, tp.dims
+    B, S, D = x.shape
+    hd = spec.head_dim
+    Hn = spec.num_heads // ax.n
+
+    def full(name):
+        return tp_mod.full(ax, p[name], d[name])
+
+    xr, xk, xv, xg, xw = _ddlerp(x, x_prev, full("tm_mu"), full("tm_w1"),
+                                 full("tm_w2"))
+    r = _cols_tp(tp, p, xr, "wr").reshape(B, S, Hn, hd)
+    k = _cols_tp(tp, p, xk, "wk").reshape(B, S, Hn, hd)
+    v = _cols_tp(tp, p, xv, "wv").reshape(B, S, Hn, hd)
+    g = silu(_cols_tp(tp, p, xg, "wg"))
+    dec = full("w0").float() + (torch.tanh(xw @ full("dec_w1"))
+                                @ full("dec_w2")).float()
+    logw = (-torch.exp(tp_mod.split_to(ax, dec))).reshape(B, S, Hn, hd)
+    u = tp_mod.local_part(ax, p["u"], d["u"], 0)
+    out, s_last = _wkv_scan(r.float(), k.float(), v.float(), None, u,
+                            spec.chunk, s0, logw=logw)
+    ln_x = tp_mod.local_part(ax, p["ln_x"], d["ln_x"], 0)
+    out = _group_norm(out.reshape(B, S, Hn * hd).to(x.dtype), ln_x, Hn) * g
+    y, split = tp_mod.linear(ax, out, p["wo"], d["wo"], x_split=True)
+    return tp_mod.to_full(ax, y, split), s_last
+
+
+def time_mix_tp(tp, p, x, spec: RWKVSpec):
+    """:func:`time_mix` under a model axis."""
+    s0 = torch.zeros((x.shape[0], spec.num_heads // tp.axis.n,
+                      spec.head_dim, spec.head_dim), dtype=torch.float32,
+                     device=x.device)
+    out, _ = _time_mix_core_tp(tp, p, x, _shift(x), spec, s0)
+    return out
+
+
+def channel_mix_tp(tp, p, x, x_prev):
+    """:func:`channel_mix` under a model axis: ``ck`` / ``cv`` by their
+    plan dims (the hidden block stays local between them), ``cr``'s
+    product gathered; the output replicated."""
+    ax, d = tp.axis, tp.dims
+    dx = x_prev - x
+    xk = x + dx * tp_mod.full(ax, p["cm_mu_k"], d["cm_mu_k"])
+    xr = x + dx * tp_mod.full(ax, p["cm_mu_r"], d["cm_mu_r"])
+    kk, ks = tp_mod.linear(ax, xk, p["ck"], d["ck"])
+    kv, kvs = tp_mod.linear(ax, torch.square(F.relu(kk)), p["cv"], d["cv"],
+                            x_split=ks)
+    rr, rs = tp_mod.linear(ax, xr, p["cr"], d["cr"])
+    return (sigmoid(tp_mod.to_full(ax, rr, rs))
+            * tp_mod.to_full(ax, kv, kvs))
+
+
+def time_mix_decode_tp(tp, p, x, wkv, shift, spec: RWKVSpec):
+    """:func:`time_mix_decode` under a model axis: ``wkv`` this rank's
+    heads' state, ``shift`` (B, D) whole -> (out, this rank's new
+    state)."""
+    return _time_mix_core_tp(tp, p, x, shift[:, None], spec, wkv)
 
 
 def init_rwkv_state(batch: int, spec: RWKVSpec, dtype=torch.bfloat16,

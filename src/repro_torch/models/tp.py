@@ -37,24 +37,23 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-_ROADMAP = "is not ported to repro_torch yet (see ROADMAP.md)"
-
 
 class Axis:
     """One mesh axis (or several, flattened) as seen from this rank: its
     process group (None: the default group), its size and this rank's
     index along it. ``collectives`` counts the all-reduces issued (none
-    when ``n == 1``)."""
+    when ``n == 1``) and ``bytes`` the bytes they reduced."""
 
     def __init__(self, group, n: int, index: int):
         self.group, self.n, self.index = group, int(n), int(index)
-        self.collectives = 0
+        self.collectives = self.bytes = 0
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the axis, in place; returns ``t``."""
         if self.n > 1:
             dist.all_reduce(t, group=self.group)
             self.collectives += 1
+            self.bytes += t.numel() * t.element_size()
         return t
 
 
@@ -120,8 +119,10 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # the parts added in float32 and rounded once
-        return ctx.ax.all_reduce(g.to(torch.float32)).to(g.dtype), None
+        # the parts added in float32 and rounded once (on a copy: autograd
+        # may hold g elsewhere)
+        return ctx.ax.all_reduce(g.to(torch.float32, copy=True)).to(
+            g.dtype), None
 
 
 class _ReduceFrom(torch.autograd.Function):
@@ -164,12 +165,32 @@ class _ColumnLinear(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
+def column_linear(ax: Axis, x: torch.Tensor, w: torch.Tensor
+                  ) -> torch.Tensor:
+    """``copy_to(x) @ w`` for replicated x and a rank-local w, the parts of
+    dx added in float32 and rounded once."""
+    return x @ w if ax.n == 1 else _ColumnLinear.apply(x, w, ax)
+
+
 def copy_to(ax: Axis, x: torch.Tensor) -> torch.Tensor:
     return x if ax.n == 1 else _CopyTo.apply(x, ax)
 
 
 def reduce_from(ax: Axis, x: torch.Tensor) -> torch.Tensor:
     return x if ax.n == 1 else _ReduceFrom.apply(x, ax)
+
+
+def psum(ax: Axis, x: torch.Tensor) -> torch.Tensor:
+    """The sum over the axis of partial values, feeding rank-local compute
+    again (a norm's sum of squares over a split dim): all-reduce forward
+    and backward."""
+    return copy_to(ax, reduce_from(ax, x))
+
+
+def split_to(ax: Axis, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's block along ``dim`` of a replicated tensor entering
+    rank-local compute (its gradient is added over the axis)."""
+    return own_block(ax, copy_to(ax, x), dim)
 
 
 def gather_from(ax: Axis, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -223,14 +244,37 @@ def linear(ax: Axis, x: torch.Tensor, w: torch.Tensor, dim: Optional[int],
     if x_split:
         x = gather_from(ax, x, -1)
     if dim == 1:
-        if ax.n == 1:
-            return x @ w, True
-        return _ColumnLinear.apply(x, w, ax), True
+        return column_linear(ax, x, w), True
     return x @ w, False
 
 
 def to_full(ax: Axis, y: torch.Tensor, split: bool) -> torch.Tensor:
     return gather_from(ax, y, -1) if split else y
+
+
+def to_split(ax: Axis, y: torch.Tensor, split: bool) -> torch.Tensor:
+    """:func:`linear`'s output as this rank's block of its last dim."""
+    return y if split else split_to(ax, y, -1)
+
+
+def full_tree(ax: Axis, tree, dims):
+    """:func:`full` over a dict tree of leaves and its aligned tree of
+    dims: a layer gathered whole, for replicated compute."""
+    if isinstance(tree, dict):
+        return {k: full_tree(ax, v, dims[k]) for k, v in tree.items()}
+    return full(ax, tree, dims)
+
+
+def rms_norm_split(ax: Axis, x: torch.Tensor, scale: torch.Tensor,
+                   width: int, eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rms_norm`` of a tensor of which this rank holds a block of
+    the last dim (``width`` wide in all; ``scale`` the same block): the
+    sum of squares is added in float32 over the axis."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = psum(ax, (x * x).sum(dim=-1, keepdim=True)) / width
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(dt)
 
 
 def embed(ax: Axis, w: torch.Tensor, dim: Optional[int],
@@ -249,10 +293,6 @@ def embed(ax: Axis, w: torch.Tensor, dim: Optional[int],
     if dim == 1:
         return gather_from(ax, w[tokens], -1)
     return w[tokens]
-
-
-def refuse(what: str):
-    raise NotImplementedError(f"{what} under a model axis {_ROADMAP}")
 
 
 class ModelTP(NamedTuple):

@@ -137,17 +137,22 @@ def _axis(mesh, entry) -> "tp_mod.Axis":
 def model_tp(model: LM, mesh, plan: ServePlan,
              batch_dp: bool = True) -> "tp_mod.ModelTP":
     """The ``tp`` the model's cached paths read: the model axis, the
-    plan's TP dims, each layer's :class:`CacheShard` (from its ``k``
-    leaf's slot entry and its ``pos`` leaf's) and the batch's axis."""
+    plan's TP dims, each layer's :class:`CacheShard` (every cache leaf's
+    split of its dim after the batch, the attention slots' axis among
+    them, and its ``pos`` leaf's) and the batch's axis."""
     model.check_tp(mesh.n_model)
-    shards = tuple(
-        {pos: CacheShard(seq=_axis(mesh, specs["k"][2]),
-                         pos=_axis(mesh, specs["pos"][1]))
-         for pos, specs in gc.items()}
-        for gc in plan.cache_specs)
+
+    def shard(specs):
+        leaves = {k: _axis(mesh, s[2]) for k, s in specs.items()
+                  if k != "pos"}
+        pos = _axis(mesh, specs["pos"][1]) if "pos" in specs else None
+        return CacheShard(pos=pos, leaves=leaves)
+
+    shards = tuple({pos: shard(specs) for pos, specs in gc.items()}
+                   for gc in plan.cache_specs)
     # the batch's axis, where the plan splits the cache's batch dim
-    entries = {specs["k"][1] for gc in plan.cache_specs
-               for specs in gc.values()}
+    entries = {s[1] for gc in plan.cache_specs for specs in gc.values()
+               for k, s in specs.items() if k != "pos"}
     entry = entries.pop() if len(entries) == 1 else None
     batch = mesh.axis_for(entry) if batch_dp and entry is not None else None
     return tp_mod.ModelTP(mesh.model_axis, plan.tp_dims(), shards, batch)
@@ -188,20 +193,41 @@ def make_chunked_prefill_step(model: LM, mesh, plan: ServePlan):
 
 
 def make_prefill_step(model: LM, mesh, plan: ServePlan):
-    """The forward over whole prompts: ``step(params, {"tokens": (B, S)})
-    -> logits (B, S, V)`` on this rank's parameter blocks and batch rows
-    (head-parallel attention, as in training)."""
+    """The forward over whole prompts: ``step(params, {"tokens": (B, S)
+    [, "enc_embeds": (B, frames, D)]}) -> logits (B, S, V)`` on this
+    rank's parameter blocks and batch rows (head-parallel attention, as in
+    training)."""
     if _is_trivial(mesh):
-        return lambda params, batch: model.logits(params, batch["tokens"])[0]
+        return lambda params, batch: model.logits(
+            params, batch["tokens"], enc_embeds=batch.get("enc_embeds"))[0]
     model.check_tp(mesh.n_model)
     tp = tp_mod.ModelTP(mesh.model_axis, plan.tp_dims(),
                         batch=mesh.dp_axis)
 
     def step(params, batch):
-        return model.logits(params, batch["tokens"], tp=tp)[0]
+        return model.logits(params, batch["tokens"],
+                            enc_embeds=batch.get("enc_embeds"), tp=tp)[0]
+
+    return step
+
+
+def make_warm_step(model: LM, mesh, plan: ServePlan, *,
+                   batch_dp: bool = True):
+    """An encoder-decoder model's cross K/V: ``step(params, cache,
+    enc_embeds) -> cache``, the encoder run on this rank's blocks (its
+    batch rows of ``enc_embeds``) and each rank writing its block of the
+    frames of every ``xk`` / ``xv`` (``LM.warm_cache``)."""
+    if _is_trivial(mesh):
+        return lambda params, cache, enc: model.warm_cache(params, cache,
+                                                           enc)
+    tp = model_tp(model, mesh, plan, batch_dp)
+
+    def step(params, cache, enc):
+        return model.warm_cache(params, cache, enc, tp=tp)
 
     return step
 
 
 __all__ = ["ServePlan", "plan_serve_sharding", "make_serve_step",
-           "make_chunked_prefill_step", "make_prefill_step", "model_tp"]
+           "make_chunked_prefill_step", "make_prefill_step",
+           "make_warm_step", "model_tp"]

@@ -66,8 +66,12 @@ identically on every model rank, as the reference's exchange replicates
 TP-sharded cotangents over ``model``; each rank keeps its block of the
 mean. fsdp mode takes the per-leaf gathers (``_fused_fsdp_active``): each
 rank's TP block of a cotangent is reduce-scattered over its dp group,
-keyed by its dp index alone. The bit schedule and two_level_async refuse
-a model axis (ROADMAP.md).
+keyed by its dp index alone. The bit schedule's phase steps are built on
+the same layout (the engines on the gathered gradient's). Under
+two_level_async the inner steps average each rank's TP blocks within its
+pod's dp group; the sync step gathers the window's delta over ``model``
+before the unchanged exchange and each rank keeps its block of the new
+anchor.
 
 :class:`ScheduledTrainStep` drives a ``BitSchedule`` /
 ``BitBudgetController`` (``core/policy.py``) over the same machinery: one
@@ -116,8 +120,6 @@ from repro_torch.utils.sharding import (choose_fsdp_dim, dp_axis_names,
 # key-fold salt separating the fused whole-tree exchange stream from the
 # per-leaf (crc32-of-path) streams
 _FUSED_SALT = zlib.crc32(b"fused_exchange") & 0x7FFFFFFF
-
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -570,7 +572,8 @@ class StateSharding:
     keeps only one worker's copy in a checkpoint).
 
     Under a model axis the TP blocks are gathered over the model group
-    first (and sliced last), so a checkpoint holds the global arrays."""
+    first (and sliced last), the outer anchor and momentum too, so a
+    checkpoint holds the global arrays."""
 
     def __init__(self, step):
         """``step`` from :func:`make_train_step` (its group and shards)."""
@@ -583,6 +586,8 @@ class StateSharding:
 
     def full_params(self, params):
         if self.stacked:
+            if self.tp is not None:
+                params = self.tp.full(params)
             return tree_map(self._stack_leaf, params)
         if self.fsdp:
             params = tree_unflatten(params, self.layout.unshard_leaves(
@@ -591,7 +596,8 @@ class StateSharding:
 
     def _shard_params(self, params):
         if self.stacked:
-            return tree_map(lambda t: t[self.rank].clone(), params)
+            params = tree_map(lambda t: t[self.rank].clone(), params)
+            return params if self.tp is None else self.tp.block(params)
         if self.tp is not None:
             params = self.tp.block(params)
         if not self.fsdp:
@@ -612,8 +618,11 @@ class StateSharding:
         if self.stacked and isinstance(opt, opt_lib.AdamState):
             opt = opt._replace(count=torch.full(
                 (self.n,), opt.count, dtype=torch.int32))
+        outer = state.outer
+        if outer is not None and self.tp is not None:
+            outer = OuterState(*self.tp.full(outer.anchor, outer.mom))
         return TrainState(params=self.full_params(state.params), opt=opt,
-                          step=state.step, ef=ef, outer=state.outer)
+                          step=state.step, ef=ef, outer=outer)
 
     def scatter(self, full: TrainState) -> TrainState:
         ef = full.ef
@@ -629,8 +638,12 @@ class StateSharding:
         opt = _map_opt(self._shard_params, full.opt)
         if self.stacked and isinstance(opt, opt_lib.AdamState):
             opt = opt._replace(count=int(opt.count[self.rank]))
+        outer = full.outer
+        if outer is not None and self.tp is not None:
+            outer = OuterState(self.tp.block(outer.anchor),
+                               self.tp.block(outer.mom))
         return TrainState(params=self._shard_params(full.params), opt=opt,
-                          step=full.step, ef=ef, outer=full.outer)
+                          step=full.step, ef=ef, outer=outer)
 
     def _stack(self, e: torch.Tensor) -> torch.Tensor:
         out = [torch.empty_like(e) for _ in range(self.n)]
@@ -829,13 +842,11 @@ def make_train_step(model: LM, tcfg: TrainConfig,
         collect_stats = False
     tp = None
     if mesh is not None and mesh.n_model > 1:
-        if lay.is_async:
-            tp_mod.refuse("hierarchy='two_level_async' (AsyncTrainStep)")
         model.check_tp(mesh.n_model)
         tp = ModelShards(mesh.model_axis, lay.plan)
     if lay.is_async:
         return _make_async_train_step(model, tcfg, lr_fn, optimizer, eng,
-                                      collect_stats)
+                                      collect_stats, tp)
     links = None                  # two-level: () -> the per-link accounting
     shards = None                 # fsdp: the layout of the stored shards
     if tcfg.mode == "fsdp":
@@ -1159,12 +1170,17 @@ def intra_pmean(tree, intra_group):
 
 
 def _make_async_train_step(model: LM, tcfg: TrainConfig, lr_fn, optimizer,
-                           eng: ExchangeEngines,
-                           collect_stats: bool) -> AsyncTrainStep:
+                           eng: ExchangeEngines, collect_stats: bool,
+                           tp: Optional[ModelShards] = None
+                           ) -> AsyncTrainStep:
     """The two halves of :class:`AsyncTrainStep`. Params and optimizer
     state are this worker's own; the outer anchor and momentum are the
     same on every worker (rewritten only at sync steps, from the
-    exchange's identical output)."""
+    exchange's identical output). Under a model axis (``tp``) every one
+    of them is this rank's TP block: the delta is gathered over ``model``
+    for the exchange (the same full delta on the model ranks of a dp
+    index, so the EF buffers are too) and each rank keeps its block of
+    the mean."""
     lay, pex, group = eng.layout, eng.pex, eng.group
     two_level = lay.two_level
     nesterov = tcfg.outer_optimizer == "nesterov"
@@ -1173,7 +1189,7 @@ def _make_async_train_step(model: LM, tcfg: TrainConfig, lr_fn, optimizer,
     use_ef = tcfg.error_feedback and any(s is not None for s in ef_sizes)
 
     def inner_update(state: TrainState, batch):
-        loss, metrics, grads = _grad(model, state, batch)
+        loss, metrics, grads = _grad(model, state, batch, tp=tp)
         if two_level:
             # the only gradient collective of an inner step, within the pod
             grads = intra_pmean(grads, eng.intra_group)
@@ -1200,6 +1216,8 @@ def _make_async_train_step(model: LM, tcfg: TrainConfig, lr_fn, optimizer,
         # same within a pod, different across pods
         delta = tree_map(lambda a, p: (a - p).to(torch.float32),
                          state.outer.anchor, new_params)
+        if tp is not None:
+            delta = tp.full(delta)
         dev = tree_leaves(new_params)[0].device
         k = prng.fold_in(prng.fold_in(key.to(dev), state.step), _FUSED_SALT)
         bufs = pex.layout.flatten_groups(delta)
@@ -1232,6 +1250,8 @@ def _make_async_train_step(model: LM, tcfg: TrainConfig, lr_fn, optimizer,
             mean_bufs = pex.exchange_parts(bufs, k)
         delta_mean = pex.layout.unflatten_groups(mean_bufs,
                                                  restore_dtype=False)
+        if tp is not None:
+            delta_mean = tp.block(delta_mean)
         # the outer step on the exchanged mean, identical on every worker
         # (rounded once each, as XLA contracts them)
         mom = tree_map(lambda m, d: fma_f32(m, outer_mu, d),
@@ -1257,7 +1277,7 @@ def _make_async_train_step(model: LM, tcfg: TrainConfig, lr_fn, optimizer,
 
     return _with_attrs(AsyncTrainStep(inner_step, sync_step,
                                       lay.local_steps),
-                       pex, lay, group, None, launches_and_bytes, links)
+                       pex, lay, group, None, launches_and_bytes, links, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -1297,9 +1317,7 @@ class ScheduledTrainStep:
             raise ValueError(
                 "ScheduledTrainStep derives the per-phase policy from the "
                 "controller's BitSchedule — leave TrainConfig.policy unset")
-        mesh = world_kw.get("mesh")
-        if mesh is not None and mesh.n_model > 1:
-            tp_mod.refuse("the adaptive bit schedule (ScheduledTrainStep)")
+        self.mesh = world_kw.get("mesh")
         self.model, self.lr_fn = model, lr_fn
         self.controller = controller
         self.schedule = controller.schedule
@@ -1355,7 +1373,8 @@ class ScheduledTrainStep:
         policy = self.schedule.policy_at(assignment)
         return make_train_step(
             self.model, dataclasses.replace(self.tcfg, policy=policy),
-            self.lr_fn, engines=specialize_engines(self.skeleton, policy))
+            self.lr_fn, engines=specialize_engines(self.skeleton, policy),
+            mesh=self.mesh)
 
     def current(self):
         """The step function of the last assignment run (the ceiling's

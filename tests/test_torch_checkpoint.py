@@ -269,12 +269,30 @@ def test_params_checkpoint_cross_loads(tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_fsdp_two_worker_state_matches_reference_layout(tmp_path):
+@pytest.fixture(scope="module", autouse=True)
+def two_worker_runs(port_test_env, tmp_path_factory):
+    """The two-worker fsdp launcher runs of this module, started together
+    when its first test runs: one with a state checkpoint, one with a
+    params checkpoint -> (their directory, the processes)."""
+    tmp = tmp_path_factory.mktemp("two_worker")
+    runs = {"state": _start(tmp / "state", 2, "--mode", "fsdp", "--steps",
+                            "1", "--state-checkpoint", str(tmp / "ck")),
+            "params": _start(tmp / "w", 2, "--mode", "fsdp", "--steps", "1",
+                             "--checkpoint", str(tmp / "params"))}
+    yield tmp, runs
+    for procs in runs.values():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def test_fsdp_two_worker_state_matches_reference_layout(two_worker_runs):
     """A 2-worker fsdp state checkpoint (rank 0 writes the global arrays:
     full params and momentum, EF buffers stacked over the ranks) loads
     against the reference's global tree for 2 workers."""
-    rcs, out = _world(tmp_path, 2, "--mode", "fsdp", "--steps", "1",
-                      "--state-checkpoint", str(tmp_path / "ck"))
+    tmp_path, runs = two_worker_runs
+    rcs, out = _wait(runs["state"])
     assert rcs == [0, 0], out
     jmodel = JLM(jget_smoke_config("lm-100m"))
     shapes = jax.eval_shape(jmodel.init, jax.random.key(0))
@@ -295,14 +313,15 @@ def test_fsdp_two_worker_state_matches_reference_layout(tmp_path):
                for x in jax.tree_util.tree_leaves(back))
 
 
-def test_launcher_params_checkpoint_is_the_digested_params(tmp_path):
+def test_launcher_params_checkpoint_is_the_digested_params(
+        two_worker_runs):
     """``--checkpoint`` on 2 fsdp workers writes the full params in rank
     order: they load against the reference's params tree, and their bytes
     hash to the printed params sha256."""
     import hashlib
+    tmp_path, runs = two_worker_runs
     path = str(tmp_path / "params")
-    rcs, out = _world(tmp_path / "w", 2, "--mode", "fsdp", "--steps", "1",
-                      "--checkpoint", path)
+    rcs, out = _wait(runs["params"])
     assert rcs == [0, 0], out
     shapes = jax.eval_shape(JLM(jget_smoke_config("lm-100m")).init,
                             jax.random.key(0))
@@ -348,10 +367,6 @@ def _start(tmp_path, n, *flags):
 def _wait(procs):
     outs = [p.communicate(timeout=300)[0] for p in procs]
     return [p.returncode for p in procs], outs[0] + "".join(outs[1:])
-
-
-def _world(tmp_path, n, *flags):
-    return _wait(_start(tmp_path, n, *flags))
 
 
 def _sha(out):

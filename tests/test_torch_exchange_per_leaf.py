@@ -152,10 +152,12 @@ def _q64(rng, *shape):
     return rng.integers(-64, 65, shape).astype(np.float32) / 64
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both sides once, concurrently: the reference on 4 fake devices, the
-    port on 4 gloo processes (own ``file://`` rendezvous)."""
+@pytest.fixture(scope="module", autouse=True)
+def started(port_test_env, tmp_path_factory):
+    """Both sides, started together when the module's first test runs
+    (the in-process single-device tests run meanwhile): the reference on
+    4 fake devices, the port on 4 gloo processes (own ``file://``
+    rendezvous); their output goes to log files."""
     tmp = tmp_path_factory.mktemp("exchange_per_leaf")
     rng = np.random.default_rng(3)
     inp = tmp / "inputs.npz"
@@ -163,24 +165,54 @@ def runs(tmp_path_factory):
              tree_ef=rng.integers(-8, 9, (L, N_TREE)).astype(np.float32)
              / 512)
     fmt = dict(tree=TREE, leaf=LEAF_POLICIES)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_PROG.format(**fmt)),
-         str(tmp / "jax.npz"), str(inp)],
-        env=_env({"XLA_FLAGS": "--xla_force_host_platform_device_count=4"}),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    for r in range(L):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", textwrap.dedent(TORCH_PROG.format(**fmt)),
-             str(r), str(tmp / f"torch{r}.npz"), str(inp),
-             str(tmp / "rdv")],
-            env=_env({"OMP_NUM_THREADS": "1"}), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+    cmds = [([sys.executable, "-c", textwrap.dedent(JAX_PROG.format(**fmt)),
+              str(tmp / "jax.npz"), str(inp)],
+             _env({"XLA_FLAGS": "--xla_force_host_platform_device_count=4"}))]
+    cmds += [([sys.executable, "-c",
+               textwrap.dedent(TORCH_PROG.format(**fmt)), str(r),
+               str(tmp / f"torch{r}.npz"), str(inp), str(tmp / "rdv")],
+              _env({"OMP_NUM_THREADS": "1"})) for r in range(L)]
+    procs = []
+    for i, (cmd, env) in enumerate(cmds):
+        with open(tmp / f"log{i}.txt", "w") as log:
+            procs.append(subprocess.Popen(cmd, env=env, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    yield tmp, procs
     for p in procs:
-        out, _ = p.communicate(timeout=600)
-        assert p.returncode == 0, out
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def runs(started):
+    tmp, procs = started
+    for i, p in enumerate(procs):
+        assert p.wait(timeout=600) == 0, (tmp / f"log{i}.txt").read_text()
     jx = dict(np.load(tmp / "jax.npz"))
     tr = [dict(np.load(tmp / f"torch{r}.npz")) for r in range(L)]
     return jx, tr
+
+
+@pytest.mark.parametrize("spec", LEAF_POLICIES)
+def test_single_device_per_leaf_qdq_matches(spec):
+    """The single-device branch's per-leaf quantize-dequantize: the
+    reference's ``qz.qdq`` of each leaf under its crc32 key."""
+    rng = np.random.default_rng(4)
+    grads = {k: _q64(rng, *s) for k, s in TREE.items()}
+    paths = {k: k for k in TREE}
+    jpol = JPolicy.parse(spec, bucket_size=512)
+    jkey = jax.random.fold_in(jax.random.key(0), 3)
+    lex = exchange.LeafExchange(QuantPolicy.parse(spec, bucket_size=512))
+    got = lex.qdq_local(paths, {k: torch.from_numpy(v)
+                                for k, v in grads.items()},
+                        prng.fold_in(prng.key(0), 3))
+    for k, g in grads.items():
+        qz = jpol.resolve(k).to_quantizer()
+        want = (g if qz.is_identity else np.asarray(qz.qdq(
+            jnp.asarray(g).reshape(-1), jax.random.fold_in(
+                jkey, zlib.crc32(k.encode()) & 0x7FFFFFFF))).reshape(g.shape))
+        np.testing.assert_array_equal(got[k].numpy(), want)
 
 
 @pytest.mark.parametrize("spec", LEAF_POLICIES)
@@ -206,24 +238,3 @@ def test_per_leaf_workers_agree(runs, spec):
     for r in range(1, L):
         np.testing.assert_array_equal(tr[r][spec][:N_TREE],
                                       tr[0][spec][:N_TREE])
-
-
-@pytest.mark.parametrize("spec", LEAF_POLICIES)
-def test_single_device_per_leaf_qdq_matches(spec):
-    """The single-device branch's per-leaf quantize-dequantize: the
-    reference's ``qz.qdq`` of each leaf under its crc32 key."""
-    rng = np.random.default_rng(4)
-    grads = {k: _q64(rng, *s) for k, s in TREE.items()}
-    paths = {k: k for k in TREE}
-    jpol = JPolicy.parse(spec, bucket_size=512)
-    jkey = jax.random.fold_in(jax.random.key(0), 3)
-    lex = exchange.LeafExchange(QuantPolicy.parse(spec, bucket_size=512))
-    got = lex.qdq_local(paths, {k: torch.from_numpy(v)
-                                for k, v in grads.items()},
-                        prng.fold_in(prng.key(0), 3))
-    for k, g in grads.items():
-        qz = jpol.resolve(k).to_quantizer()
-        want = (g if qz.is_identity else np.asarray(qz.qdq(
-            jnp.asarray(g).reshape(-1), jax.random.fold_in(
-                jkey, zlib.crc32(k.encode()) & 0x7FFFFFFF))).reshape(g.shape))
-        np.testing.assert_array_equal(got[k].numpy(), want)

@@ -257,16 +257,51 @@ def _finish(procs):
     return outs[0]
 
 
-def test_fp_per_leaf_fsdp_bit_equal_to_fused(tmp_path):
-    """3 fp steps on 4 workers: the per-leaf and the fused fsdp exchange
-    give the same parameters bit for bit."""
+CHECK_MODES = [("fsdp", "1"), ("replicated", "2"), ("fsdp", "2")]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def started(port_test_env, tmp_path_factory):
+    """Every subprocess world of this module, started together when its
+    first test runs (they run while the reference compiles): the fp
+    fused and per-leaf fsdp runs, the state round trip and
+    ``launch.exchange_check`` in each new mode; each test waits for its
+    own."""
+    tmp = tmp_path_factory.mktemp("worlds")
     common = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
               "--seq", "16", "--quant", "fp", "--mode", "fsdp"]
-    runs = {name: _start(tmp_path / name, 4, "repro_torch.launch.train",
-                         *common, "--metrics-out",
-                         str(tmp_path / f"{name}.json"), *extra)
-            for name, extra in (("fused", []),
-                                ("per_leaf", ["--per-leaf-exchange"]))}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    (tmp / "state").mkdir()
+    runs = {"fp": {name: _start(tmp / name, 4, "repro_torch.launch.train",
+                                *common, "--metrics-out",
+                                str(tmp / f"{name}.json"), *extra)
+                   for name, extra in (("fused", []),
+                                       ("per_leaf",
+                                        ["--per-leaf-exchange"]))},
+            "state": [subprocess.Popen(
+                [sys.executable, "-c", STATE_PROG, str(r),
+                 str(tmp / "state" / "rdv")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(2)],
+            "checks": {m: _start(tmp / f"{m[0]}{m[1]}", 4,
+                                 "repro_torch.launch.exchange_check",
+                                 "--device", "cpu", "--mode", m[0],
+                                 "--pods", m[1]) for m in CHECK_MODES},
+            "tmp": tmp}
+    yield runs
+    for procs in [*runs["fp"].values(), runs["state"],
+                  *runs["checks"].values()]:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def test_fp_per_leaf_fsdp_bit_equal_to_fused(started):
+    """3 fp steps on 4 workers: the per-leaf and the fused fsdp exchange
+    give the same parameters bit for bit."""
+    runs, tmp_path = started["fp"], started["tmp"]
     for procs in runs.values():
         _finish(procs)
     m = {k: json.loads((tmp_path / f"{k}.json").read_text()) for k in runs}
@@ -310,32 +345,18 @@ dist.destroy_process_group()
 """
 
 
-def test_state_sharding_round_trip(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", STATE_PROG, str(r),
-                               str(tmp_path / "rdv")], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+def test_state_sharding_round_trip(started):
+    procs = started["state"]
     outs = [p.communicate(timeout=300)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
     assert all("STATE_OK" in o for o in outs), outs
 
 
-CHECK_MODES = [("fsdp", "1"), ("replicated", "2"), ("fsdp", "2")]
-
-
 @pytest.fixture(scope="module")
-def exchange_checks(tmp_path_factory):
+def exchange_checks(started):
     """``launch.exchange_check --device cpu`` on 4 gloo workers in each
-    new mode, concurrently."""
-    tmp = tmp_path_factory.mktemp("exchange_check")
-    procs = {m: _start(tmp / f"{m[0]}{m[1]}", 4,
-                       "repro_torch.launch.exchange_check", "--device",
-                       "cpu", "--mode", m[0], "--pods", m[1])
-             for m in CHECK_MODES}
-    return {m: _finish(p) for m, p in procs.items()}
+    new mode (started with the module's other worlds)."""
+    return {m: _finish(p) for m, p in started["checks"].items()}
 
 
 @pytest.mark.parametrize("mode,pods", CHECK_MODES)

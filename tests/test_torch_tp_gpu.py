@@ -5,11 +5,14 @@ on CUDA tensors), held against the same world on the CPU, where the
 kernels' plain versions run (gloo for both groups).
 
 One step of each: replicated orq-9 with error feedback, replicated
-BinGrad-b and per-leaf fsdp orq-9, on smoke lm-100m with the loss
-``sum(p * G)`` (through the per-leaf gathers in fsdp) and G on the 1/64
-grid (every sum of a fit exact in any order): the params gathered over
-``model`` and the EF residuals are bit-equal, card against CPU, and the
-card's kernels ran (their launch counters moved). BinGrad-b's phase 2
+BinGrad-b and per-leaf fsdp orq-9, on smoke lm-100m, and replicated orq-9
+with error feedback (BinGrad-b for rwkv6, per-leaf fsdp for deepseek too)
+on the smoke jamba, rwkv6, deepseek and whisper, whose leaves the plan
+splits on other dims, with the loss ``sum(p * G)`` (through the per-leaf
+gathers in fsdp) and G on the 1/64 grid (every sum of a fit exact in any
+order): the params gathered over ``model`` and the EF residuals are
+bit-equal, card against CPU, and the card's kernels ran (their launch
+counters moved). BinGrad-b's phase 2
 re-fits the averaged chunk, whose level means are off the grid, so its
 exchange is float-close (1e-5, ``tests/test_torch_exchange_schemes.py``)
 and its params are held within BIN_PARAMS_ATOL: lr 0.05 x 1e-5 x
@@ -29,9 +32,16 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BIN_PARAMS_ATOL = 0.05 * 1e-5
-CASES = {"orq9_ef": ("orq-9", "replicated", True),
-         "bingrad_b": ("bingrad-b", "replicated", False),
-         "fsdp_orq9": ("orq-9", "fsdp", False)}
+CASES = {"orq9_ef": ("orq-9", "replicated", True, "lm-100m"),
+         "bingrad_b": ("bingrad-b", "replicated", False, "lm-100m"),
+         "fsdp_orq9": ("orq-9", "fsdp", False, "lm-100m"),
+         "jamba_orq9_ef": ("orq-9", "replicated", True, "jamba-v0.1-52b"),
+         "rwkv6_orq9_ef": ("orq-9", "replicated", True, "rwkv6-3b"),
+         "rwkv6_bingrad_b": ("bingrad-b", "replicated", False, "rwkv6-3b"),
+         "deepseek_orq9_ef": ("orq-9", "replicated", True,
+                              "deepseek-v2-236b"),
+         "deepseek_fsdp_orq9": ("orq-9", "fsdp", False, "deepseek-v2-236b"),
+         "whisper_orq9_ef": ("orq-9", "replicated", True, "whisper-base")}
 
 PROG = """
 import json, sys
@@ -53,6 +63,10 @@ from repro_torch.train.step import StateSharding
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten
 
 
+def stacked(path):
+    return path.startswith("g") or path.startswith("enc/g")
+
+
 class Grid(LM):
     # loss sum(p * G), G on the 1/64 grid; each rank adds its TP blocks
     def __init__(self, cfg, dev):
@@ -69,11 +83,11 @@ class Grid(LM):
         if gather is not None:      # per-leaf fsdp: each repeat's slice
             params = tree_unflatten(params, [
                 torch.stack([gather(p, x[r], r) for r in range(x.shape[0])])
-                if p.startswith("g") else gather(p, x, 0)
+                if stacked(p) else gather(p, x, 0)
                 for p, x in zip(paths, tree_leaves(params))])
         if tp is not None:
             G = [g if tp.dims.get(p) is None else tp_mod.own_block(
-                tp.axis, g, tp.dims[p] + p.startswith("g"))
+                tp.axis, g, tp.dims[p] + stacked(p))
                 for p, g in zip(paths, G)]
         loss = sum((p * g.to(p.dtype)).sum()
                    for p, g in zip(tree_leaves(params), G))
@@ -81,16 +95,15 @@ class Grid(LM):
                       "tokens": torch.ones((), device=loss.device)}
 
 
-cfg = get_smoke_config("lm-100m")
 meshes = {"cuda": make_host_mesh(model=2, dp_backend="nccl",
                                   model_backend="gloo"),
           "cpu": make_host_mesh(model=2, dp_backend="gloo",
                                 model_backend="gloo")}
 out = {}
-for name, (quant, mode, ef) in cases.items():
+for name, (quant, mode, ef, arch) in cases.items():
     res = {}
     for dev, mesh in meshes.items():
-        model = Grid(cfg, dev)
+        model = Grid(get_smoke_config(arch), dev)
         tcfg = TrainConfig(policy=QuantPolicy.parse(quant, bucket_size=512),
                            mode=mode, error_feedback=ef)
         fn = make_train_step(model, tcfg, constant_lr(0.05), mesh=mesh)
@@ -139,7 +152,7 @@ def rows():
 def test_tp_world_on_the_card_equals_plain(rows, case):
     for r in rows:
         row = r[case]
-        if case == "bingrad_b":
+        if CASES[case][0] == "bingrad-b":
             assert row["params_max_abs_diff"] <= BIN_PARAMS_ATOL, row
         else:
             assert row["params_equal"], row

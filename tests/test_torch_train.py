@@ -14,12 +14,15 @@
   the rest within a level gap); a whole orq-9 step with error feedback
   updates within 0.2 in relative norm (the bf16 gradient differences
   flip some rounding decisions).
-* The launcher CLI runs on the CPU.
+* The launcher CLI runs on the CPU. Its subprocess worlds all start at
+  once when the module's first test runs (``worlds``), each test reading
+  its own.
 """
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -337,11 +340,65 @@ def _cli(*args):
         env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_cli_runs_on_cpu(tmp_path):
+class _Background:
+    """``fn()`` on a thread; ``get()`` waits and returns its result (or
+    raises what it raised)."""
+
+    def __init__(self, fn):
+        self.result = self.error = None
+        self.thread = threading.Thread(target=self._run, args=(fn,))
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.result = fn()
+        except BaseException as e:   # re-raised in the test that reads it
+            self.error = e
+
+    def get(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+PORTED_FLAGS = [["--mode", "fsdp"], ["--hierarchy", "two_level"],
+                ["--resume", "CKPT"], ["--pods", "2"]]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def worlds(port_test_env, tmp_path_factory):
+    """Every subprocess world of this module, started together when its
+    first test runs: the CLI run, each ported flag's run, the two-worker
+    launcher and the exchange check."""
+    tmp = tmp_path_factory.mktemp("worlds")
+    runs = {"cli": _Background(lambda: _cli_run(tmp / "cli")),
+            "torchrun": _Background(lambda: _world(
+                tmp / "torchrun", 2, "repro_torch.launch.train", "--smoke",
+                "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+                "16", "--quant", "orq-9", "--bucket", "512",
+                "--error-feedback")),
+            "exchange_check": _Background(lambda: _world(
+                tmp / "exchange_check", 2,
+                "repro_torch.launch.exchange_check", "--device", "cpu"))}
+    for i, flags in enumerate(PORTED_FLAGS):
+        runs[tuple(flags)] = _Background(
+            lambda f=flags, i=i: _ported_run(tmp / f"ported{i}", f))
+    yield runs
+    for r in runs.values():
+        r.thread.join()
+
+
+def _cli_run(tmp_path):
+    tmp_path.mkdir(parents=True, exist_ok=True)
     out = tmp_path / "m.json"
-    r = _cli("--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
-             "--seq", "16", "--quant", "orq-9", "--bucket", "512",
-             "--log-every", "1", "--metrics-out", str(out))
+    return out, _cli("--smoke", "--device", "cpu", "--steps", "2", "--batch",
+                     "2", "--seq", "16", "--quant", "orq-9", "--bucket",
+                     "512", "--log-every", "1", "--metrics-out", str(out))
+
+
+def test_cli_runs_on_cpu(worlds):
+    out, r = worlds["cli"].get()
     assert r.returncode == 0, r.stdout + r.stderr
     lines = r.stdout.splitlines()
     assert sum(ln.startswith("step ") for ln in lines) == 2
@@ -384,15 +441,19 @@ def test_cli_refuses_unported_flags(flags, capsys):
     assert CLI_REFUSALS[tuple(flags)] in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--mode", "fsdp"],
-                                   ["--hierarchy", "two_level"],
-                                   ["--resume", "CKPT"],
-                                   ["--pods", "2"]])
-def test_cli_runs_ported_flags(flags, tmp_path):
+@pytest.mark.parametrize("flags", PORTED_FLAGS)
+def test_cli_runs_ported_flags(flags, worlds):
     """The flags that were refused before fsdp, the two-level hierarchy
     and checkpoints were ported: each runs two smoke steps on the CPU
     (``--pods 2`` on two gloo workers, ``--resume`` from a one-step state
     checkpoint)."""
+    n, rcs, out = worlds[tuple(flags)].get()
+    assert rcs == [0] * n, out
+    assert any(ln.startswith("params sha256 ") for ln in out.splitlines())
+    assert f"replicas in sync: True ({n} workers)" in out
+
+
+def _ported_run(tmp_path, flags):
     n = 2 if "--pods" in flags else 1
     common = ["--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
               "--quant", "orq-9", "--bucket", "512", "--log-every", "1"]
@@ -400,13 +461,12 @@ def test_cli_runs_ported_flags(flags, tmp_path):
         ck = str(tmp_path / "state")
         rcs, out = _world(tmp_path / "first", 1, "repro_torch.launch.train",
                           *common, "--steps", "1", "--state-checkpoint", ck)
-        assert rcs == [0], out
+        if rcs != [0]:
+            return n, rcs, out
         flags = ["--resume", ck]
     rcs, out = _world(tmp_path, n, "repro_torch.launch.train", *common,
                       "--steps", "2", *flags)
-    assert rcs == [0] * n, out
-    assert any(ln.startswith("params sha256 ") for ln in out.splitlines())
-    assert f"replicas in sync: True ({n} workers)" in out
+    return n, rcs, out
 
 
 _WORKER = """
@@ -441,21 +501,17 @@ def _world(tmp_path, n, module, *args):
     return rcs, "".join(log.read_text() for log in logs)
 
 
-def test_torchrun_world_keeps_replicas_in_sync(tmp_path):
+def test_torchrun_world_keeps_replicas_in_sync(worlds):
     """Two gloo workers, each on its rows of the global batch: the
     phase-2 decode is deterministic, so the params stay bit-identical."""
-    rcs, out = _world(tmp_path, 2, "repro_torch.launch.train", "--smoke",
-                      "--device", "cpu", "--steps", "2", "--batch", "4",
-                      "--seq", "16", "--quant", "orq-9", "--bucket", "512",
-                      "--error-feedback")
+    rcs, out = worlds["torchrun"].get()
     assert rcs == [0, 0], out
     assert "replicas in sync: True (2 workers)" in out
 
 
-def test_exchange_check_script_on_cpu(tmp_path):
+def test_exchange_check_script_on_cpu(worlds):
     import json
-    rcs, out = _world(tmp_path, 2, "repro_torch.launch.exchange_check",
-                      "--device", "cpu")
+    rcs, out = worlds["exchange_check"].get()
     assert rcs == [0, 0], out
     line = json.loads([ln for ln in out.splitlines()
                        if ln.startswith("{")][-1])

@@ -282,17 +282,34 @@ def _env(extra):
             "JAX_PLATFORMS": "cpu", **extra}
 
 
-@pytest.fixture(scope="module")
-def dp_rows(tmp_path_factory):
-    """The reference's states on 4 fake devices, then one port step from
-    each on 4 gloo workers -> {(case, step): [row of each rank]}."""
+_FMT = dict(cases=CASES, lr=LR, tests=os.path.join(ROOT, "tests"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_states(port_test_env, tmp_path_factory):
+    """The reference's states on 4 fake devices, in a subprocess started
+    when the module's first test runs (it runs while the in-process
+    reference computes ``fsdp_runs``) -> (its directory, the process)."""
     tmp = tmp_path_factory.mktemp("train_ef")
-    fmt = dict(cases=CASES, lr=LR, tests=os.path.join(ROOT, "tests"))
-    jax_src = JAX_PROG.format(**fmt)
-    subprocess.run(
-        [sys.executable, "-c", jax_src, str(tmp)], check=True, timeout=600,
-        env=_env({"XLA_FLAGS": "--xla_force_host_platform_device_count=4"}))
-    torch_src = TORCH_PROG.format(**fmt)
+    with open(tmp / "jax.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", JAX_PROG.format(**_FMT), str(tmp)],
+            env=_env({"XLA_FLAGS":
+                      "--xla_force_host_platform_device_count=4"}),
+            stdout=log, stderr=subprocess.STDOUT)
+    yield tmp, proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def dp_rows(jax_states):
+    """One port step from each of the reference's states on 4 gloo
+    workers -> {(case, step): [row of each rank]}."""
+    tmp, proc = jax_states
+    assert proc.wait(timeout=600) == 0, (tmp / "jax.log").read_text()
+    torch_src = TORCH_PROG.format(**_FMT)
     procs = [subprocess.Popen(
         [sys.executable, "-c", torch_src, str(r), str(tmp), str(tmp / "rdv")],
         env=_env({"OMP_NUM_THREADS": "1"}), stdout=subprocess.PIPE,

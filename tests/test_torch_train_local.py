@@ -343,16 +343,29 @@ def _start(tmp_path, tag, n, *args):
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
 
 
-@pytest.fixture(scope="module")
-def launcher_runs(tmp_path_factory):
-    """Each schedule on two gloo workers, the four worlds concurrently;
-    -> rank 0's metrics per schedule."""
+@pytest.fixture(scope="module", autouse=True)
+def launcher_started(port_test_env, tmp_path_factory):
+    """Each schedule on two gloo workers, the four worlds started together
+    when the module's first test runs (they run while the reference
+    computes in process)."""
     tmp = tmp_path_factory.mktemp("train_schedules")
     runs = {"K1": [], "K3": ["--pipeline-chunks", "3"],
             "K4": ["--pipeline-chunks", "4"],
             "per_leaf": ["--per-leaf-exchange"]}
     started = {tag: _start(tmp, tag, 2, *BASE, *extra)
                for tag, extra in runs.items()}
+    yield started
+    for _, procs in started.values():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+@pytest.fixture(scope="module")
+def launcher_runs(launcher_started):
+    """-> rank 0's metrics per schedule."""
+    started = launcher_started
     out = {}
     for tag, (path, procs) in started.items():
         log = "".join(p.communicate(timeout=300)[0] for p in procs)
